@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's query paths once on one NVIDIA GPU and check
+them.
 
-    python3 chip_smoke.py [--n 100000] [--nq 10000]
+    python3 chip_smoke.py [--n 100000] [--nq 10000] [--mini-n 2200000]
 
 Run from the root of a checkout. Phases, each printed as it ends:
 
   1. card and build: nvidia-smi's name and power limit, torch and CUDA
-     versions, and the fused beam-search kernel compiled by nvcc from
-     hnsw_itu_tpu_torch/csrc/ for sm_90a;
-  2. small random graphs: kernel against its plain PyTorch version for the
-     seven (W, ef) pairs of the JAX kernel's contract and the clamped-key
-     case, keys/visited/steps equal;
+     versions, and both beam-search kernels compiled by nvcc from
+     hnsw_itu_tpu_torch/csrc/ for sm_90a (one nvcc each, in parallel),
+     with ptxas's register and spill lines;
+  2. small random graphs: each kernel against its plain PyTorch version:
+     the fused kernel for the seven (W, ef) pairs of the JAX kernel's
+     contract and the clamped-key case (keys/visited/steps equal), the
+     mini kernel for the seven (W, ef, mini_words) cases of the JAX mini
+     kernels' contract with 1, 4 and 8 seeds and tie_bits 0 and 8
+     (d/ids/visited/steps equal);
   3. data and build: make_dataset(0, n, nq), the HNSW built on the host by
      the native engine (efc=96, m=24, M=64), tensors on the card;
   4. oracle: exact k=10 ground truth on the card, its distances equal to
@@ -19,7 +24,19 @@ Run from the root of a checkout. Phases, each printed as it ends:
      one batch; warm run, then the best of 3; recall@10 >= 0.93, the
      kernel launched and the plain version never called;
   6. kernel against the plain version at the slice shapes: every query,
-     the same init keys, keys/visited/steps equal; both timed.
+     the same init keys, keys/visited/steps equal; both timed;
+  7. the mini path, with the 100k index freed: make_dataset(0, mini_n,
+     nq), the host build (capacity at least 2.2M rows, past the 2^21
+     ids an int32 packed key holds, so the policy refuses the fused table
+     by itself), the oracle, enable_inline() picking the mini table, and
+     knns at k=10, ef=32 (sampled entry 1024, max_steps auto): warm run,
+     best of 3, recall@10 >= 0.93; then ef=96 (beam capacity 128) and one
+     call with 4 entry seeds, a one-hop rerank of 8 and the bit-reversed
+     tie order; the mini kernel launched at both capacities and the plain
+     version never called;
+  8. mini kernel against the plain version at the slice shapes: every
+     query at ef=32 and ef=96, and with 4 seeds and tie_bits; both timed,
+     and the exact rerank timed apart.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero
@@ -30,6 +47,7 @@ without the package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -41,8 +59,17 @@ K, EF, MAX_STEPS, SAMPLE = 10, 32, 32, 1024
 RECALL_GATE = 0.93  # bench.py's gate
 KERNEL_SRC = "hnsw_itu_tpu_torch/csrc/fused_beam_search.cu"
 KERNEL_REPLACES = "hnsw_itu_tpu/ops/pallas_search.py:267"
+MINI_SRC = "hnsw_itu_tpu_torch/csrc/mini_beam_search.cu"
+MINI_REPLACES = "hnsw_itu_tpu/ops/pallas_dma_search.py:680"
+MINI_COVERS = ["hnsw_itu_tpu/ops/pallas_dma_search.py:875 (#4, beam half 128)",
+               "hnsw_itu_tpu/ops/pallas_dma_search.py:534 (#5, unpacked)"]
 PAIRS = [(16, 24), (32, 64), (64, 48), (32, 32), (32, 16), (64, 96),
          (32, 128)]
+MINI_CASES = [(64, 48, 3), (64, 96, 7), (32, 32, 3), (32, 48, 31),
+              (32, 64, 31), (64, 128, 7), (32, 96, 7)]
+MINI_CAP = 2_200_000  # index rows of the mini phase, at least
+MINI_EFS = (32, 96)  # beam capacity 64 and 128
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 
 
 def log(msg: str) -> None:
@@ -71,6 +98,33 @@ def max_abs_diff(got, want) -> int:
                for g, w in zip(got, want))
 
 
+def device_breakdown(fn, calls: int = 3, top: int = 6):
+    """Device time of one ``fn()`` by kernel, from torch.profiler over
+    ``calls`` runs after a warm one: (total ms, [(kernel, ms), ...])."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type):  # kernels, not the ops launching them
+            us[e.key] = us.get(e.key, 0.0) + e.self_device_time_total
+    ranked = sorted(us.items(), key=lambda kv: -kv[1])[:top]
+    return (sum(us.values()) / calls / 1e3,
+            [(k, v / calls / 1e3) for k, v in ranked])
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least time for ``nbytes`` of device-memory traffic at HBM's rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def random_graph(rng, cap, w, words):
     import numpy as np
 
@@ -96,14 +150,19 @@ def phase_card():
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}, python {sys.version.split()[0]}")
-    _kernels.load_fused_beam_search(rebuild=True)
-    info = _kernels.BUILD_INFO["fused_beam_search"]
-    log(f"[1] built {KERNEL_SRC} with nvcc {' '.join(_kernels.NVCC_FLAGS)} "
-        f"in {info['seconds']:.1f} s -> "
-        f"{os.path.relpath(info['path'], HERE)}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[1]   ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    _kernels.build_kernels(rebuild=True)
+    log(f"[1] built {len(_kernels.KERNELS)} kernels in parallel in "
+        f"{time.perf_counter() - t0:.1f} s, nvcc "
+        f"{' '.join(_kernels.NVCC_FLAGS)}")
+    for name in _kernels.KERNELS:
+        info = _kernels.BUILD_INFO[name]
+        log(f"[1] built hnsw_itu_tpu_torch/csrc/{name}.cu in "
+            f"{info['seconds']:.1f} s -> "
+            f"{os.path.relpath(info['path'], HERE)}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[1]   ptxas: {line.strip()}")
     return smi
 
 
@@ -148,27 +207,30 @@ def phase_small_graphs(dev) -> int:
     return worst
 
 
-def phase_build(n, nq, dev):
+def phase_build(n, nq, dev, *, cap=None, tag="3"):
+    """make_dataset + the native host build of ``n`` points into an index
+    of ``cap`` rows (default ``n``)."""
     from hnsw_itu_tpu_torch.models import IndexOptions
     from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
     from hnsw_itu_tpu_torch.utils import make_dataset
 
     t0 = time.perf_counter()
     pts, qs = make_dataset(0, n, nq)
-    log(f"[3] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] make_dataset(0, {n}, {nq}): "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b = HNSWBuilder(IndexOptions(ef_construction=96, connections=24,
-                                 max_connections=64, size=n, batch_size=256,
-                                 host_warmup=n), device=dev)
+                                 max_connections=64, size=cap or n,
+                                 batch_size=256, host_warmup=n), device=dev)
     b.extend_batched(pts)
     index = b.build()
-    log(f"[3] host build (native engine) + upload: "
-        f"{time.perf_counter() - t0:.1f} s, levels {index.level_ns}, "
-        f"ep {index.ep}")
+    log(f"[{tag}] host build (native engine) of {n} points into "
+        f"{cap or n} rows + upload: {time.perf_counter() - t0:.1f} s, "
+        f"levels {index.level_ns}, ep {index.ep}")
     return pts, qs, index
 
 
-def phase_oracle(pts, qs, dev):
+def phase_oracle(pts, qs, dev, tag="4"):
     import numpy as np
     import torch
 
@@ -181,12 +243,13 @@ def phase_oracle(pts, qs, dev):
     gt = bf.build().knns(qs, K)
     torch.cuda.synchronize()
     gt_d, gt_i = gt.dists.cpu().numpy(), gt.ids.cpu().numpy()
-    log(f"[4] oracle on the card: {time.perf_counter() - t0:.2f} s for "
-        f"{len(qs)} x {len(pts)}")
+    log(f"[{tag}] oracle on the card: {time.perf_counter() - t0:.2f} s "
+        f"for {len(qs)} x {len(pts)}")
     d_host, _ = native.host_bruteforce(pts, "hamming", qs[:256], K)
     if not np.array_equal(gt_d[:256], d_host):
         raise AssertionError("oracle distances != native host scan")
-    log("[4] oracle distances equal the native host scan on 256 queries")
+    log(f"[{tag}] oracle distances equal the native host scan on 256 "
+        "queries")
     return gt_i
 
 
@@ -266,10 +329,16 @@ def phase_slice_shapes(index, qs, dev, smi, knns_s):
     init = ((d0[order].clamp(max=max_d) << id_bits) | eps[order]).contiguous()
     kw = dict(ef=EF, id_bits=id_bits, max_d=max_d, max_steps=MAX_STEPS)
     got = fused_beam_search(index.fused, qs_o, init, **kw)
+    st = {}
     want = beam_search_packed(index.fused.ids, index.fused.data, qs_o, init,
-                              **kw)
+                              stats=st, **kw)
     torch.cuda.synchronize()
     err = max_abs_diff(got, want)
+    # bytes the search must move: each expansion's W ids and each valid
+    # neighbor's sketch, the queries and entry keys in, keys and counts out
+    B = len(qs)
+    nbytes = (st["rows"] * index.fused.width * 4 + st["edges"] * words * 4
+              + B * (words + 1) * 4 + B * EF * 4 + B * 8)
     log(f"[6] {len(qs)} queries at N={index.n}: kernel vs plain max |diff| "
         f"{err} over keys, visited, steps")
     if err:
@@ -279,16 +348,225 @@ def phase_slice_shapes(index, qs, dev, smi, knns_s):
     p_ms = cuda_ms(lambda: beam_search_packed(
         index.fused.ids, index.fused.data, qs_o, init, **kw), 2)
     e_ms = cuda_ms(entry, 10)
+    b_ms = bound_ms(nbytes)
     log(f"[6] on {smi}: fused kernel {k_ms:.3f} ms, plain version "
         f"{p_ms:.3f} ms, sampled entry {e_ms:.3f} ms, whole knns "
         f"{knns_s * 1e3:.3f} ms (host clock), for {len(qs)} queries")
-    return err, k_ms, p_ms
+    log(f"[6] the search reads {st['rows']} rows, {st['edges']} valid "
+        f"edges: {nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms}
+
+
+def mini_seeds(points, q, n, mw, beams):
+    """Seeds of the mini path as HNSW.knns makes them: sampled entry (top
+    ``beams``), prefix distances, queries sorted by the nearest seed."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry_topk
+    from hnsw_itu_tpu_torch.ops.metrics import HAMMING, popcount_sum
+
+    eps = sampled_entry_topk(points, q, n, sample_size=SAMPLE, beams=beams,
+                             metric=HAMMING)[0]
+    d0 = popcount_sum(points[eps.long(), :mw] ^ q[:, None, :mw])
+    order = torch.argsort(d0.min(dim=1).values, stable=True)
+    return q[order].contiguous(), d0[order], eps[order]
+
+
+def mini_vs_plain(table, q, d0, eps, *, ef, max_steps, tie_bits=0,
+                  stats=None):
+    """Kernel and plain version of the mini search on the same inputs:
+    max |diff| over d, ids, visited and steps."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.mini_search import (mini_beam_search,
+                                                    mini_beam_search_plain)
+
+    kw = dict(ef=ef, mini_words=table.shape[2] - 1, max_steps=max_steps,
+              tie_bits=tie_bits)
+    got = mini_beam_search(table, q, d0, eps, **kw)
+    want = mini_beam_search_plain(table, q, d0, eps, stats=stats, **kw)
+    torch.cuda.synchronize()
+    return max_abs_diff(got, want), got
+
+
+def phase_small_mini(dev) -> int:
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+    from hnsw_itu_tpu_torch.ops.mini_search import materialize_mini
+
+    worst = 0
+    for w, ef, mw in MINI_CASES:
+        for E, tie in ((1, 0), (4, 8), (8, 8)):
+            cap, words, B = 256, 32, 32
+            rng = np.random.default_rng(w + ef + mw + E)
+            pts, adj = random_graph(rng, cap, w, words)
+            qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+            seeds = np.stack([rng.choice(cap, size=E, replace=False)
+                              for _ in range(B)]).astype(np.int32)
+            p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+            table = materialize_mini(p, torch.from_numpy(adj).to(dev),
+                                     mini_words=mw)
+            s = torch.from_numpy(seeds).to(dev)
+            d0 = popcount_sum(p[s.long(), :mw] ^ q[:, None, :mw])
+            err, got = mini_vs_plain(table, q, d0, s, ef=ef, max_steps=256,
+                                     tie_bits=tie)
+            worst = max(worst, err)
+            log(f"[2] mini W={w} ef={ef} mw={mw} seeds={E} tie_bits={tie}: "
+                f"kernel vs plain max |diff| {err} over d, ids, visited, "
+                f"steps (visited/q {got[2].float().mean():.1f}, "
+                f"steps/q {got[3].float().mean():.1f})")
+            if err:
+                raise AssertionError(f"mini kernel != plain at W={w} "
+                                     f"ef={ef} mw={mw} E={E} tie={tie}")
+    return worst
+
+
+def phase_mini_query(index, qs, gt_i, dev):
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.ops.mini_search import mini_beam_search
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    nq = len(qs)
+    index.query_entry_sample = SAMPLE
+    index.max_steps = None  # the bench's rule past 200k: max(2 ef, 64)
+    index.query_batch = max(10240, nq)
+    t0 = time.perf_counter()
+    index.enable_inline()
+    torch.cuda.synchronize()
+    if index.fused is not None or index.mini is None:
+        raise AssertionError("the policy did not pick the mini table")
+    W, mw = index.mini_W, index.mini_words
+    log(f"[7] mini table picked by the policy: W={W}, mini_words={mw}, "
+        f"{tuple(index.mini.shape)} int32 = "
+        f"{index.mini.numel() * 4 / 1e9:.3f} GB, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    q = as_sketches(qs, dev)
+
+    def run(ef):
+        res = index.knns(q, K, ef)
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
+                or not (np.diff(dists, axis=1) >= 0).all():
+            raise AssertionError(f"bad mini result at ef={ef}")
+        return (recall_at_k(ids, gt_i, K), index.last_stats["visited"] / nq,
+                index.last_stats["steps"] / nq)
+
+    out = {}
+    for ef in MINI_EFS:
+        before = mini_beam_search.kernel_launches
+        index.knns(q, K, ef)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            index.knns(q, K, ef)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        rec, vis, steps = run(ef)
+        cap = 64 if ef <= 64 else 128
+        out[ef] = {"knns_ms": best * 1e3, "recall": rec}
+        log(f"[7] knns k={K} ef={ef} (beam capacity {cap}, max_steps "
+            f"{index._steps_cap(ef)}): best of 3 {best * 1e3:.2f} ms for "
+            f"{nq} queries = {nq / best:,.0f} QPS, recall@10 {rec:.4f}, "
+            f"visited/q {vis:.1f}, steps/q {steps:.2f}, kernel launches at "
+            f"capacity {cap}: {mini_beam_search.kernel_launches - before}")
+        if mini_beam_search.kernel_launches == before:
+            raise AssertionError(f"mini kernel not launched at ef={ef}")
+        if ef == EF and rec < RECALL_GATE:
+            raise AssertionError(f"recall@10 {rec:.4f} < {RECALL_GATE}")
+    index.query_entry_beams, index.query_hop = 4, 8
+    index.query_tie = "bitrev"
+    rec, vis, steps = run(EF)
+    log(f"[7] knns ef={EF} with 4 entry seeds, one-hop rerank of 8, "
+        f"bit-reversed ties (tie_bits {index._tie_bits()}): recall@10 "
+        f"{rec:.4f}, visited/q {vis:.1f}, steps/q {steps:.2f}")
+    index.query_entry_beams, index.query_hop = 1, 0
+    index.query_tie = "auto"
+    return out
+
+
+def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.ops.mini_search import (mini_beam_search,
+                                                    mini_beam_search_plain,
+                                                    rerank_exact)
+
+    table, W, mw = index.mini, index.mini_W, index.mini_words
+    B = len(qs)
+    total, top = device_breakdown(lambda: index.knns(as_sketches(qs, dev), K,
+                                                     EF))
+    log(f"[8] knns ef={EF} on the device (torch.profiler, 3 calls): "
+        f"{total:.3f} ms per call, {100 * total / knns_ms:.0f}% of the "
+        f"{knns_ms:.3f} ms host-clock call")
+    for name, ms in top:
+        log(f"[8]   {ms:.3f} ms  {name[:100]}")
+    qs_o, d0, eps = mini_seeds(index.points, as_sketches(qs, dev), index.n,
+                               mw, 1)
+    out, worst = {}, 0
+    for ef in MINI_EFS:
+        steps = index._steps_cap(ef)
+        st = {}
+        err, got = mini_vs_plain(table, qs_o, d0, eps, ef=ef,
+                                 max_steps=steps, stats=st)
+        worst = max(worst, err)
+        log(f"[8] {B} queries at N={index.n}, ef={ef}: kernel vs plain "
+            f"max |diff| {err} over d, ids, visited, steps")
+        if err:
+            raise AssertionError(f"mini kernel != plain at ef={ef}")
+        kw = dict(ef=ef, mini_words=mw, max_steps=steps)
+        k_ms = cuda_ms(lambda: mini_beam_search(table, qs_o, d0, eps, **kw),
+                       10)
+        p_ms = cuda_ms(lambda: mini_beam_search_plain(table, qs_o, d0, eps,
+                                                      **kw), 2)
+        # bytes the search must move: each expansion's W ids and each
+        # valid neighbor's prefix, queries and seeds in, keys and counts out
+        nbytes = (st["rows"] * W * 4 + st["edges"] * mw * 4 + B * mw * 4
+                  + B * 8 + B * ef * 8 + B * 8)
+        b_ms = bound_ms(nbytes)
+        out[ef] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+        log(f"[8] on {smi}, ef={ef}: mini kernel {k_ms:.3f} ms, plain "
+            f"version {p_ms:.3f} ms; the search reads {st['rows']} rows "
+            f"({st['rows'] / B:.2f}/q), {st['edges']} valid edges "
+            f"({st['edges'] / st['rows']:.1f}/row): {nbytes / 1e9:.3f} GB, "
+            f"bound {b_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
+        if ef == EF:
+            ids = got[1]
+            r_ms = cuda_ms(lambda: rerank_exact(index.points, qs_o, ids,
+                                                k=K), 10)
+            log(f"[8] exact rerank of the ef={ef} beam (_query_step_mini's "
+                f"rerank_exact): {r_ms:.3f} ms")
+    qs4, d4, eps4 = mini_seeds(index.points, as_sketches(qs, dev), index.n,
+                               mw, 4)
+    index.query_tie = "bitrev"
+    tie_bits = index._tie_bits()
+    index.query_tie = "auto"
+    err, _ = mini_vs_plain(table, qs4, d4, eps4, ef=EF,
+                           max_steps=index._steps_cap(EF), tie_bits=tie_bits)
+    worst = max(worst, err)
+    log(f"[8] {B} queries, ef={EF}, 4 seeds, bit-reversed ties (tie_bits "
+        f"{tie_bits}): kernel vs plain max |diff| {err}")
+    if err:
+        raise AssertionError("mini kernel != plain with 4 seeds and ties")
+    return worst, out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=100_000, help="index points")
+    ap.add_argument("--n", type=int, default=100_000,
+                    help="index points of the fused path")
     ap.add_argument("--nq", type=int, default=10_000, help="queries")
+    ap.add_argument("--mini-n", type=int, default=MINI_CAP,
+                    help="index points of the mini path (the index keeps "
+                    f"at least {MINI_CAP} rows)")
     args = ap.parse_args(argv)
 
     import torch
@@ -304,13 +582,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from hnsw_itu_tpu_torch import require_cuda
     from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.ops.mini_search import mini_beam_search
 
     dev = require_cuda(0)
     t_start = time.perf_counter()
     smi = phase_card()
     err_small = phase_small_graphs(dev)
+    err_small_mini = phase_small_mini(dev)
 
-    # the main path: build, table, queries; only its launches count
+    # the fused path: build, table, queries; only its launches count
     fused_beam_search.kernel_launches = 0
     fused_beam_search.plain_calls = 0
     pts, qs, index = phase_build(args.n, args.nq, dev)
@@ -320,9 +600,33 @@ def main(argv=None) -> int:
     plain = fused_beam_search.plain_calls
     if launches <= 0 or plain != 0:
         raise AssertionError(
-            f"main path launches {launches}, plain calls {plain}")
+            f"fused path launches {launches}, plain calls {plain}")
+    fused = phase_slice_shapes(index, qs, dev, smi, knns_s)
+    del pts, qs, index, gt_i
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[6] fused-path index freed: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB still allocated")
 
-    err_slice, k_ms, p_ms = phase_slice_shapes(index, qs, dev, smi, knns_s)
+    # the mini path: build, table, queries; only its launches count
+    mini_beam_search.kernel_launches = 0
+    mini_beam_search.plain_calls = 0
+    fused_before = fused_beam_search.kernel_launches
+    pts, qs, index = phase_build(args.mini_n, args.nq, dev,
+                                 cap=max(args.mini_n, MINI_CAP), tag="7")
+    gt_i = phase_oracle(pts, qs, dev, tag="7")
+    del pts
+    mini_q = phase_mini_query(index, qs, gt_i, dev)
+    mini_launches = mini_beam_search.kernel_launches
+    mini_plain = mini_beam_search.plain_calls
+    log(f"[7] mini path: kernel_launches {mini_launches}, plain_calls "
+        f"{mini_plain}, fused launches "
+        f"{fused_beam_search.kernel_launches - fused_before}")
+    if mini_launches <= 0 or mini_plain != 0:
+        raise AssertionError(
+            f"mini path launches {mini_launches}, plain calls {mini_plain}")
+    err_mini, mini = phase_mini_slice_shapes(index, qs, dev, smi,
+                                             mini_q[EF]["knns_ms"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
@@ -330,9 +634,27 @@ def main(argv=None) -> int:
         "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
         "launches": launches,
-        "max_abs_err": max(err_small, err_slice),
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "max_abs_err": max(err_small, fused["max_abs_err"]),
+        "ms": fused["ms"],
+        "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call runs a beam search
+    }, {
+        "name": "mini_beam_search",
+        "route": "cuda",
+        "source": MINI_SRC,
+        "replaces": MINI_REPLACES,
+        "also_replaces": MINI_COVERS,
+        "launches": mini_launches,
+        "max_abs_err": max(err_small_mini, err_mini),
+        "ms": mini[EF]["ms"],
+        "plain_ms": mini[EF]["plain_ms"],
+        "bound_ms": mini[EF]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ef96": mini[MINI_EFS[1]],
+        "knns": {str(ef): v for ef, v in mini_q.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,11 +7,13 @@ Each level holds three tensors, as in the JAX package:
     down:     int32[cap_l]  local slot -> slot in the level below
     graph:    GraphArrays   adjacency over local slots
 
-Slice 1 builds the whole hierarchy on the host with the native engine
+The port builds the whole hierarchy on the host with the native engine
 (the JAX package's ``host_warmup = size`` route, ``--single-threaded``) and
-serves queries on the device: a sampled entry, then the fused beam-search
-kernel over the base layer. Paths not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+serves queries on the device: a sampled entry, then one beam-search
+kernel over the base layer: the fused kernel where the fused table can
+serve the index, else the mini-table kernel with an exact rerank (past
+2^21 points, or where the fused table does not fit the card). Paths not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ import torch
 
 from .. import native
 from ..graph import GraphArrays
-from ..ops.entry import sampled_entry
+from ..ops.entry import sampled_entry, sampled_entry_topk
 from ..ops.fused_search import MAX_EF, materialize_fused
 from ..ops.metrics import as_sketches, get_metric
+from ..ops.mini_search import materialize_mini
 from .base import ID_INF, IndexOptions, KnnResult, LazyStats, rng_seed
-from .nsw import _fused_query_eligible, _query_step_fused
+from .nsw import (_fused_query_eligible, _mini_config_for, _query_step_fused,
+                  _query_step_mini)
 
 
 class Level(NamedTuple):
@@ -59,9 +63,15 @@ class HNSW:
         self.opts = opts or IndexOptions()
         self.query_batch = 1024
         self.query_entry_sample = 0  # >0: sampled entry (ops/entry.py)
+        self.query_entry_beams = 1  # >1: seed with the sample's top-B (mini)
+        self.query_hop = 0  # >0: one-hop exact rerank seeds (mini path)
+        self.query_tie = "auto"  # mini-path tie order: auto, id or bitrev
         self.max_steps = None  # None = auto (2*ef, floor 64)
         self.last_stats = None
         self.fused = None  # fused query table (ops/fused_search.py)
+        self.mini = None  # mini query table (ops/mini_search.py)
+        self.mini_words = 0
+        self.mini_W = 0
         self.id_map = None  # int32[cap] new->original id (set by reorder)
 
     def size(self) -> int:
@@ -70,15 +80,43 @@ class HNSW:
     def _steps_cap(self, ef: int) -> int:
         return self.max_steps if self.max_steps else max(2 * ef, 64)
 
+    def _tie_bits(self) -> int:
+        """Bits of the mini path's bit-reversed tie order: 0 (ties by id)
+        for "id", and for "auto" on an index that was not reordered."""
+        tie = self.query_tie
+        if tie == "id" or (tie == "auto" and self.id_map is None):
+            return 0
+        if tie not in ("auto", "bitrev"):
+            raise ValueError(f"unknown query_tie {tie!r}")
+        return max(1, (self.base.capacity - 1).bit_length())
+
     def enable_inline(self) -> None:
-        """Materialize the fused query table for the base layer, once, when
-        the kernel can serve this index (models/nsw.py
-        ``_fused_query_eligible``). The JAX package's level inline rows
-        serve only the greedy descent, which is not ported yet."""
-        if self.fused is None and _fused_query_eligible(
-            self.points, self.base.adj, self.metric
-        ):
+        """Materialize one base-layer query table, once: the fused table
+        when its kernel can serve this index (models/nsw.py
+        ``_fused_query_eligible``), else the mini table of the widest
+        prefix that fits the card's free memory less a margin
+        (``_mini_config_for``), built from the first ``W`` edges of each
+        row. The JAX package's level inline rows serve only the greedy
+        descent, which is not ported yet."""
+        if self.fused is not None or self.mini is not None:
+            return
+        if _fused_query_eligible(self.points, self.base.adj, self.metric):
             self.fused = materialize_fused(self.points, self.base.adj)
+            return
+        W, mw = _mini_config_for(self.points, self.base.adj, self.metric)
+        if mw > 0:
+            self.mini = materialize_mini(self.points, self.base.adj[:, :W],
+                                         mini_words=mw)
+            self.mini_words, self.mini_W = mw, W
+
+    def _mini_entry(self, q: torch.Tensor) -> torch.Tensor:
+        """Seed ids of the mini path: the sampled entry, or its top
+        ``query_entry_beams`` when that is above 1 ([B] or [B, E])."""
+        kw = dict(sample_size=self.query_entry_sample, metric=self.metric)
+        if self.query_entry_beams > 1:
+            return sampled_entry_topk(self.points, q, self.n,
+                                      beams=self.query_entry_beams, **kw)[0]
+        return sampled_entry(self.points, q, self.n, **kw)
 
     def base_ep(self) -> int:
         """Follow the down-pointer chain from the top-level entry point to
@@ -89,8 +127,9 @@ class HNSW:
         return e
 
     def knns(self, queries, k: int, ef: int) -> KnnResult:
-        """k nearest neighbors of every query: sampled entry, then the fused
-        base-layer beam search at beam width max(ef, k)."""
+        """k nearest neighbors of every query: sampled entry, then the
+        base-layer beam search at beam width max(ef, k) on the fused
+        table, or on the mini table followed by an exact rerank."""
         if self.ep is None:
             raise ValueError("empty index")
         if max(ef, k) > MAX_EF:
@@ -104,10 +143,11 @@ class HNSW:
                 "is not ported yet (ROADMAP §1, item 18); "
                 "set query_entry_sample"
             )
-        if self.fused is None:
+        if self.fused is None and self.mini is None:
             raise NotImplementedError(
-                "no fused table: call enable_inline() first; indexes it "
-                "cannot serve need the mini-table path (ROADMAP §1, item 14)"
+                "no fused or mini table: call enable_inline() first; "
+                "indexes neither table can serve need the general beam "
+                "search (ROADMAP §1, item 4)"
             )
         qs = as_sketches(queries, self.device)
         nq = qs.shape[0]
@@ -115,13 +155,20 @@ class HNSW:
         out_d, out_i, out_v, out_s = [], [], [], []
         for s in range(0, nq, B):
             q = qs[s : s + B]
-            eps = sampled_entry(self.points, q, self.n,
-                                sample_size=self.query_entry_sample,
-                                metric=self.metric)
-            d, i, vis, st = _query_step_fused(
-                self.points, self.fused, q, eps, k=k, ef=ef,
-                max_steps=self._steps_cap(ef),
-            )
+            if self.fused is not None:
+                eps = sampled_entry(self.points, q, self.n,
+                                    sample_size=self.query_entry_sample,
+                                    metric=self.metric)
+                d, i, vis, st = _query_step_fused(
+                    self.points, self.fused, q, eps, k=k, ef=ef,
+                    max_steps=self._steps_cap(ef),
+                )
+            else:
+                d, i, vis, st = _query_step_mini(
+                    self.points, self.mini, q, self._mini_entry(q), k=k,
+                    ef=ef, max_steps=self._steps_cap(ef), adj=self.base.adj,
+                    hop=self.query_hop, tie_bits=self._tie_bits(),
+                )
             out_d.append(d)
             out_i.append(i)
             out_v.append(vis)

@@ -1,12 +1,15 @@
-from .entry import sampled_entry, strided_sample_ids
+from .entry import sampled_entry, sampled_entry_topk, strided_sample_ids
 from .fused_search import (FusedTable, fused_beam_search, fused_width,
                            key_clamp, materialize_fused)
 from .metrics import HAMMING, Hamming, as_sketches, get_metric, popcount
-from .search import beam_search_packed
+from .mini_search import (bitrev_ids, materialize_mini, mini_beam_search,
+                          rerank_exact, rerank_onehop)
+from .search import beam_search_packed, beam_search_two_plane
 from .topk import inverse_permutation, merge_min_k, min_k, sort_by_dist
 
 __all__ = [
     "sampled_entry",
+    "sampled_entry_topk",
     "strided_sample_ids",
     "FusedTable",
     "fused_beam_search",
@@ -18,7 +21,13 @@ __all__ = [
     "as_sketches",
     "get_metric",
     "popcount",
+    "bitrev_ids",
+    "materialize_mini",
+    "mini_beam_search",
+    "rerank_exact",
+    "rerank_onehop",
     "beam_search_packed",
+    "beam_search_two_plane",
     "inverse_permutation",
     "merge_min_k",
     "min_k",

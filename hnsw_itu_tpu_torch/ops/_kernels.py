@@ -1,6 +1,6 @@
 """Build and bind the CUDA kernels of ``csrc/`` (nvcc + ctypes).
 
-Nothing is compiled at import. The first launch runs
+Nothing is compiled at import. The first launch of a kernel runs
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
@@ -9,7 +9,8 @@ into ``hnsw_itu_tpu_torch/build/`` and loads the library with ctypes. The
 file name carries a hash of the source, so an edited kernel is rebuilt and
 a stale library is never loaded. Every pointer and the stream pass as
 ``ctypes.c_void_p``; the C entry returns ``cudaGetLastError()`` after its
-launch, and a nonzero code raises here.
+launch, and a nonzero code raises here. ``build_kernels`` builds every
+source at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -58,7 +60,8 @@ def _build(name: str, rebuild: bool) -> str:
         digest = hashlib.sha256(f.read()).hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
     if os.path.exists(out) and not rebuild:
-        BUILD_INFO[name] = {"seconds": 0.0, "log": "cached", "path": out}
+        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached",
+                                     "path": out})
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -78,23 +81,46 @@ def _build(name: str, rebuild: bool) -> str:
     return out
 
 
-def load_fused_beam_search(rebuild: bool = False) -> ctypes.CDLL:
-    """The kernel library, built on first use; ``rebuild`` compiles it
-    anew even when a build of the same source exists (before the first
-    load only)."""
+# C entry points of each library: name -> (function, argtypes)
+_ENTRIES = {
+    "fused_beam_search": ("hnsw_fused_beam_search",
+                          [_P] * 7 + [_I] * 8 + [_P]),
+    "mini_beam_search": ("hnsw_mini_beam_search",
+                         [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+}
+KERNELS = tuple(_ENTRIES)
+
+
+def _load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use."""
     with _LOCK:
-        lib = _LIBS.get("fused_beam_search")
+        lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_build("fused_beam_search", rebuild))
-            lib.hnsw_fused_beam_search.argtypes = [
-                _P, _P, _P, _P, _P, _P, _P,
-                _I, _I, _I, _I, _I, _I, _I, _I, _P,
-            ]
-            lib.hnsw_fused_beam_search.restype = _I
+            lib = ctypes.CDLL(_build(name, rebuild=False))
+            fn, argtypes = _ENTRIES[name]
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
             lib.hnsw_cuda_error_string.argtypes = [_I]
             lib.hnsw_cuda_error_string.restype = ctypes.c_char_p
-            _LIBS["fused_beam_search"] = lib
+            _LIBS[name] = lib
         return lib
+
+
+def build_kernels(rebuild: bool = False) -> None:
+    """Build every kernel of ``csrc/`` at once, one nvcc process per
+    source, all started together, then load them. ``rebuild`` compiles
+    anew even where a build of the same source exists (before the first
+    load only)."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda n: _build(n, rebuild), KERNELS))
+    for name in KERNELS:
+        _load(name)
+
+
+def _check_rc(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.hnsw_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {rc} ({msg})")
 
 
 def launch_fused_beam_search(queries, init_keys, ids, data, out_keys,
@@ -109,7 +135,7 @@ def launch_fused_beam_search(queries, init_keys, ids, data, out_keys,
                          f"got {words}")
     if data.data_ptr() % 16 or queries.data_ptr() % 16:
         raise ValueError("fused kernel needs 16-byte aligned data/queries")
-    lib = load_fused_beam_search()
+    lib = _load("fused_beam_search")
     dev = queries.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -120,6 +146,26 @@ def launch_fused_beam_search(queries, init_keys, ids, data, out_keys,
             out_steps.data_ptr(), queries.shape[0], cap, W, words, ef,
             id_bits, key_inf, max_steps, stream,
         )
-    if rc != 0:
-        msg = lib.hnsw_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_beam_search launch failed: {rc} ({msg})")
+    _check_rc(lib, rc, "fused_beam_search")
+
+
+def launch_mini_beam_search(queries, init_keys, table, out_keys,
+                            out_visited, out_steps, *, ef: int,
+                            tie_bits: int, max_steps: int) -> None:
+    """Launch the mini kernel on the current stream of the queries'
+    device: ``init_keys`` int64[B, E] ascending, ``out_keys`` int64[B, ef].
+    The caller has checked dtypes, shapes and contiguity."""
+    if table.data_ptr() % 16:
+        raise ValueError("mini kernel needs a 16-byte aligned table")
+    lib = _load("mini_beam_search")
+    dev = queries.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cap, W, mv = table.shape
+        rc = lib.hnsw_mini_beam_search(
+            queries.data_ptr(), queries.shape[1], init_keys.data_ptr(),
+            init_keys.shape[1], table.data_ptr(), out_keys.data_ptr(),
+            out_visited.data_ptr(), out_steps.data_ptr(), queries.shape[0],
+            cap, W, mv, ef, tie_bits, max_steps, stream,
+        )
+    _check_rc(lib, rc, "mini_beam_search")

@@ -1,13 +1,15 @@
-"""Packed-key beam search, plain PyTorch (port of
-hnsw_itu_tpu/ops/search.py::_beam_search_packed).
+"""Beam searches, plain PyTorch (port of hnsw_itu_tpu/ops/search.py).
 
-This is the plain version of the fused CUDA kernel
-(``csrc/fused_beam_search.cu``): the function the kernel computes, written
-as whole-batch tensor steps. ``ops/fused_search.py`` runs it for CPU
-tensors; the tests hold it against the JAX reference, and ``chip_smoke.py``
-holds the kernel against it on the card.
+Two functions, each the plain version of one CUDA kernel: the function the
+kernel computes, written as whole-batch tensor steps. The kernel's wrapper
+runs it for CPU tensors; the tests hold it against the JAX reference, and
+``chip_smoke.py`` holds the kernel against it on the card. Both take an
+optional ``stats`` dict that accumulates ``rows`` (expansions) and
+``edges`` (valid neighbors read), the data-dependent work that bounds the
+kernels' memory traffic.
 
-It is ``_beam_search_packed`` with ``expand=1``, ``dedup="beam"`` and
+``beam_search_packed`` (kernel ``csrc/fused_beam_search.cu``) is
+``_beam_search_packed`` with ``expand=1``, ``dedup="beam"`` and
 ``tie_bits=0``, batched over queries as a Python step loop with a
 per-query done mask (the JAX package's ``vmap`` of a ``while_loop``):
 
@@ -22,6 +24,12 @@ per-query done mask (the JAX package's ``vmap`` of a ``while_loop``):
 * the rest merge into the beam, which is cut back to ``ef``;
 * a query stops when no unexpanded key is below ``KEY_INF`` (and at most
   ``beam[ef-1]``), or after ``max_steps`` expansions.
+
+``beam_search_two_plane`` (kernel ``csrc/mini_beam_search.cu``) is the
+two-key branch of ``beam_search`` (``:126-252``) with ``expand=1`` and
+``dedup="beam"``, run on the mini table's prefix sketches
+(``ops/mini_search.py``): the contract the JAX package holds its TPU mini
+kernels to (``tests/test_dma_search.py::test_mini_matches_xla_on_prefix``).
 """
 
 from __future__ import annotations
@@ -31,9 +39,16 @@ import torch
 from .metrics import popcount_sum
 
 
+def _count(stats, live, ok) -> None:
+    if stats is not None:
+        stats["rows"] = stats.get("rows", 0) + int(live.sum())
+        stats["edges"] = stats.get("edges", 0) + int(ok.sum())
+
+
 def beam_search_packed(ids: torch.Tensor, data: torch.Tensor,
                        queries: torch.Tensor, init_keys: torch.Tensor, *,
-                       ef: int, id_bits: int, max_d: int, max_steps: int):
+                       ef: int, id_bits: int, max_d: int, max_steps: int,
+                       stats: dict | None = None):
     """Search every query from its packed entry key.
 
     Args:
@@ -45,6 +60,7 @@ def beam_search_packed(ids: torch.Tensor, data: torch.Tensor,
       id_bits: bits of the id field of a key.
       max_d: distance clamp; KEY_INF = (max_d + 1) << id_bits.
       max_steps: expansion bound per query.
+      stats: optional dict; accumulates ``rows`` and ``edges`` read.
 
     Returns (keys int32[B, ef], visited int32[B], steps int32[B]).
     """
@@ -76,6 +92,7 @@ def beam_search_packed(ids: torch.Tensor, data: torch.Tensor,
         nbr = ids[e]  # [B, W]
         cd = popcount_sum(data[e] ^ q).clamp(max=max_d)  # [B, W]
         ok = (nbr >= 0) & live[:, None]
+        _count(stats, live, ok)
         ck = torch.where(ok, (cd << id_bits) | nbr, kinf)
 
         mk = torch.cat([bk, ck], dim=1)
@@ -90,6 +107,87 @@ def beam_search_packed(ids: torch.Tensor, data: torch.Tensor,
         dup[:, 1:] = mk[:, 1:] == mk[:, :-1]
         vis += ((~dup) & cand & (mk < kinf)).sum(dim=1, dtype=torch.int32)
         mk = torch.where(dup, kinf, mk)
+        mx = mx & ~dup
+        o = torch.argsort(mk, dim=1, stable=True)[:, :ef]
+        bk, bx = mk.gather(1, o), mx.gather(1, o)
+    return bk, vis, steps
+
+
+def beam_search_two_plane(table: torch.Tensor, queries: torch.Tensor,
+                          init_keys: torch.Tensor, *, ef: int,
+                          max_steps: int, tie_bits: int = 0,
+                          stats: dict | None = None):
+    """Search every query over the mini table from its seed keys.
+
+    Args:
+      table: int32[cap, W, 1 + mw] the mini table (``ops/mini_search.py``).
+      queries: int32[B, words >= mw]; the first mw words are used.
+      init_keys: int64[B, E] seed keys ``d << 32 | id`` (prefix distance,
+        tie-encoded id), ascending and distinct; E <= ef.
+      ef: beam width.
+      max_steps: expansion bound per query.
+      tie_bits: > 0 holds ``bitrev_ids(id, tie_bits)`` in the id plane.
+      stats: optional dict; accumulates ``rows`` and ``edges`` read.
+
+    Returns (keys int64[B, ef], visited int32[B], steps int32[B]); keys
+    are ascending, empty slots ``KEY_INF``, ids tie-encoded.
+
+    Per step, as the XLA two-key merge does: expand the best unexpanded
+    key; candidates are the row's valid neighbors with their prefix
+    distances; a candidate whose id is in the beam, or repeats an earlier
+    candidate of the row, is a duplicate (dropped, not counted in
+    ``visited``); the rest merge into the beam, cut back to ``ef``.
+    ``visited`` starts at the number of seeds.
+    """
+    from .mini_search import IINF, KEY_INF, bitrev_ids
+
+    dev = queries.device
+    B, E = init_keys.shape
+    cap, W, mv = table.shape
+    low = 0xFFFFFFFF
+    bk = torch.full((B, ef), KEY_INF, dtype=torch.int64, device=dev)
+    bk[:, :E] = init_keys
+    bx = torch.zeros((B, ef), dtype=torch.bool, device=dev)
+    vis = ((init_keys & low) < IINF).sum(dim=1, dtype=torch.int32)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)
+    is_cand = torch.cat([torch.zeros(ef, dtype=torch.bool, device=dev),
+                         torch.ones(W, dtype=torch.bool, device=dev)])
+    q = queries[:, None, : mv - 1]  # [B, 1, mw]
+    for _ in range(max_steps):
+        frontier = (~bx) & (bk < KEY_INF) & (bk <= bk[:, ef - 1 : ef])
+        live = frontier.any(dim=1)
+        if not bool(live.any()):
+            break
+        # beam is sorted: the first unexpanded slot holds the best key
+        pos = frontier.to(torch.int8).argmax(dim=1)
+        bx[rows, pos] = bx[rows, pos] | live
+        steps += live.to(torch.int32)
+        e = bk[rows, pos] & low
+        if tie_bits:
+            e = bitrev_ids(e.clamp(max=(1 << tie_bits) - 1), tie_bits)
+        r = table[e.clamp(max=cap - 1)]  # [B, W, 1 + mw]
+        nbr = r[:, :, 0]
+        cd = popcount_sum(r[:, :, 1:] ^ q).to(torch.int64)  # [B, W]
+        ok = (nbr >= 0) & live[:, None]
+        _count(stats, live, ok)
+        if tie_bits:
+            nbr = bitrev_ids(nbr, tie_bits)
+        ck = torch.where(ok, (cd << 32) | nbr.to(torch.int64), KEY_INF)
+
+        mk = torch.cat([bk, ck], dim=1)
+        mx = torch.cat([bx, torch.zeros_like(ck, dtype=torch.bool)], dim=1)
+        # sort by (id, not-expanded): equal ids sit together with the
+        # expanded (or the beam's) copy first; every later copy is a dup
+        mi = mk & low
+        o = torch.argsort(mi * 2 + (~mx).to(torch.int64), dim=1,
+                          stable=True)
+        mk, mx, mi = mk.gather(1, o), mx.gather(1, o), mi.gather(1, o)
+        cand = is_cand.expand(B, -1).gather(1, o)
+        dup = torch.zeros_like(mx)
+        dup[:, 1:] = mi[:, 1:] == mi[:, :-1]
+        vis += ((~dup) & cand & (mi < IINF)).sum(dim=1, dtype=torch.int32)
+        mk = torch.where(dup, KEY_INF, mk)
         mx = mx & ~dup
         o = torch.argsort(mk, dim=1, stable=True)[:, :ef]
         bk, bx = mk.gather(1, o), mx.gather(1, o)

@@ -172,5 +172,5 @@ def test_unfusable_index_refuses_queries(data):
     idx.enable_inline()
     assert idx.fused is None
     idx.query_entry_sample = SAMPLE
-    with pytest.raises(NotImplementedError, match="no fused table"):
+    with pytest.raises(NotImplementedError, match="no fused or mini table"):
         idx.knns(data[1][:4], K, EF)

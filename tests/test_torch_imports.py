@@ -1,6 +1,7 @@
 """The port imports without JAX: every module of ``hnsw_itu_tpu_torch``
 loads in a process where ``import jax`` fails, and none of them pulls in
-``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel."""
+``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel. The mini-table
+module, which ports code of a JAX module, is also checked alone."""
 
 import os
 import subprocess
@@ -29,3 +30,24 @@ def test_port_imports_without_jax():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 15  # every module was visited
+
+
+_ALONE = r"""
+import sys
+sys.modules["jax"] = None
+import hnsw_itu_tpu_torch.ops.mini_search
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "hnsw_itu_tpu", "triton"))
+assert not bad, bad
+"""
+
+
+def test_mini_search_imports_alone_without_jax():
+    r = subprocess.run([sys.executable, "-c", _ALONE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    path = os.path.join(REPO, "hnsw_itu_tpu_torch", "ops", "mini_search.py")
+    with open(path) as f:
+        heads = [ln.split() for ln in f if ln.startswith(("import ", "from "))]
+    assert all(h[1].split(".")[0] not in ("jax", "hnsw_itu_tpu")
+               for h in heads), heads

@@ -1,6 +1,9 @@
-"""The fused CUDA beam-search kernel against its plain PyTorch version on
-the card: keys, visited and steps bit-exact (tolerance 0) for the seven
-(W, ef) pairs of the JAX kernel's contract and the clamped-key case.
+"""The CUDA beam-search kernels against their plain PyTorch versions on
+the card, bit-exact (tolerance 0): the fused kernel (keys, visited, steps)
+for the seven (W, ef) pairs of the JAX kernel's contract and the
+clamped-key case; the mini kernel (d, ids, visited, steps) at beam
+capacity 64 and 128, with several seeds, with tie_bits, and on a table
+past 2^21 rows.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest -p no:cacheprovider
@@ -14,11 +17,18 @@ from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
                                                  key_clamp,
                                                  materialize_fused)
 from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+from hnsw_itu_tpu_torch.ops.mini_search import (materialize_mini,
+                                                mini_beam_search,
+                                                mini_beam_search_plain)
 from hnsw_itu_tpu_torch.ops.search import beam_search_packed
 
 # (W, ef) pairs of the JAX kernel's contract (tests/test_pallas_search.py)
 PAIRS = [(16, 24), (32, 64), (64, 48), (32, 32), (32, 16), (64, 96),
          (32, 128)]
+# (W, ef, mini_words) of the JAX mini kernels' contract
+# (tests/test_dma_search.py::test_mini_matches_xla_on_prefix)
+MINI_CASES = [(64, 48, 3), (64, 96, 7), (32, 32, 3), (32, 48, 31),
+              (32, 64, 31), (64, 128, 7), (32, 96, 7)]
 
 
 def random_graph(rng, cap, w, words):
@@ -36,6 +46,17 @@ def fused_inputs(pts, adj, qs, id_bits, max_d, device):
     table = materialize_fused(p, torch.from_numpy(adj).to(device))
     d0 = popcount_sum(q ^ p[0])
     return table, q, (d0.clamp(max=key_clamp(id_bits, max_d)) << id_bits)
+
+
+def mini_inputs(pts, adj, qs, seeds, mw, device):
+    """(table, queries, seed prefix distances, seed ids) for the mini
+    search; ``seeds`` int32[B] or [B, E]."""
+    p, q = as_sketches(pts, device), as_sketches(qs, device)
+    table = materialize_mini(p, torch.from_numpy(adj).to(device),
+                             mini_words=mw)
+    s = torch.from_numpy(seeds).to(device)
+    qp = q[:, None, :mw] if s.dim() == 2 else q[:, :mw]
+    return table, q, popcount_sum(p[s.long(), :mw] ^ qp), s
 
 
 @pytest.fixture
@@ -97,3 +118,82 @@ def test_kernel_other_sketch_widths(cuda_device, words):
                                   cuda_device)
     _kernel_vs_plain(table, q, init, ef=ef, id_bits=id_bits,
                      max_d=words * 32, max_steps=64)
+
+
+def _mini_vs_plain(table, q, d0, s, **kw):
+    launches = mini_beam_search.kernel_launches
+    got = mini_beam_search(table, q, d0, s, **kw)
+    torch.cuda.synchronize()
+    assert mini_beam_search.kernel_launches == launches + 1
+    want = mini_beam_search_plain(table, q, d0, s, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return got
+
+
+def _mini_case(rng, cap, w, E, B=32, words=32):
+    pts, adj = random_graph(rng, cap, w, words)
+    qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+    if E == 1:
+        return pts, adj, qs, np.zeros(B, np.int32)
+    seeds = np.stack([rng.choice(cap, size=E, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    return pts, adj, qs, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,ef,mw", MINI_CASES)
+def test_mini_kernel_matches_plain(cuda_device, w, ef, mw):
+    """Capacity 64 (ef <= 64) and 128, 16-byte and 4-byte row loads."""
+    rng = np.random.default_rng(w + ef + mw)
+    pts, adj, qs, seeds = _mini_case(rng, 256, w, 1)
+    _mini_vs_plain(*mini_inputs(pts, adj, qs, seeds, mw, cuda_device),
+                   ef=ef, mini_words=mw, max_steps=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ef,E,tie,mw", [(48, 4, 8, 7), (48, 8, 0, 5),
+                                         (96, 8, 8, 31), (96, 4, 0, 7)])
+def test_mini_kernel_seeds_and_ties(cuda_device, ef, E, tie, mw):
+    """Several distinct seeds per query, the bit-reversed tie order, and
+    a prefix width (mw=5) read word by word."""
+    rng = np.random.default_rng(ef * 10 + E + tie)
+    pts, adj, qs, seeds = _mini_case(rng, 256, 32, E)
+    _mini_vs_plain(*mini_inputs(pts, adj, qs, seeds, mw, cuda_device),
+                   ef=ef, mini_words=mw, max_steps=256, tie_bits=tie)
+
+
+@pytest.mark.cuda
+def test_mini_kernel_repeated_neighbors(cuda_device):
+    """Rows that repeat their first half: later copies are duplicates."""
+    rng = np.random.default_rng(21)
+    pts, adj, qs, seeds = _mini_case(rng, 256, 32, 1)
+    adj[:, 16:] = adj[:, :16]
+    _mini_vs_plain(*mini_inputs(pts, adj, qs, seeds, 7, cuda_device),
+                   ef=48, mini_words=7, max_steps=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie", [0, 22])
+def test_mini_kernel_past_packed_key_range(cuda_device, tie):
+    """A table of 2^21 + 2^20 rows (W=32, mw=3, 1.6 GB): the graph lives on
+    the ids above 2^21, which no int32 (d, id) packing of 1024-bit
+    distances holds."""
+    cap, w, mw, B, ef, live = 3 << 20, 32, 3, 256, 64, 4096
+    rng = np.random.default_rng(tie)
+    base = (1 << 21) + 12345
+    pts_live, adj_live = random_graph(rng, live, w, mw)
+    qs = rng.integers(0, 2**32, size=(B, mw), dtype=np.uint32)
+    pts = torch.zeros((cap, mw), dtype=torch.int32, device=cuda_device)
+    pts[base : base + live] = as_sketches(pts_live, cuda_device)
+    adj = torch.full((cap, w), -1, dtype=torch.int32, device=cuda_device)
+    adj_live = np.where(adj_live >= 0, adj_live + base, -1).astype(np.int32)
+    adj[base : base + live] = torch.from_numpy(adj_live).to(cuda_device)
+    table = materialize_mini(pts, adj, mini_words=mw)
+    q = as_sketches(qs, cuda_device)
+    s = torch.full((B,), base, dtype=torch.int32, device=cuda_device)
+    d0 = popcount_sum(pts[s.long()] ^ q)
+    d, i, _, _ = _mini_vs_plain(table, q, d0, s, ef=ef, mini_words=mw,
+                                max_steps=128, tie_bits=tie)
+    found = i[i < 0x7FFFFFFF]
+    assert found.numel() > 0 and bool((found >= base).all())
