@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query paths once on one NVIDIA GPU and check
-them.
+"""Drive the PyTorch port's query paths and its batched build once on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--n 100000] [--nq 10000] [--mini-n 2200000]
+                          [--build-n 1000000]
 
 Run from the root of a checkout. Phases, each printed as it ends:
 
   1. card and build: nvidia-smi's name and power limit, torch and CUDA
-     versions, and both beam-search kernels compiled by nvcc from
+     versions, and the four kernels compiled by nvcc from
      hnsw_itu_tpu_torch/csrc/ for sm_90a (one nvcc each, in parallel),
      with ptxas's register and spill lines;
-  2. small random graphs: each kernel against its plain PyTorch version:
+  2. small random cases: each kernel against its plain PyTorch version:
      the fused kernel for the seven (W, ef) pairs of the JAX kernel's
      contract and the clamped-key case (keys/visited/steps equal), the
      mini kernel for the seven (W, ef, mini_words) cases of the JAX mini
      kernels' contract with 1, 4 and 8 seeds and tie_bits 0 and 8
-     (d/ids/visited/steps equal);
+     (d/ids/visited/steps equal), the gather kernel across W, ef, seeds,
+     a node map and repeated ids (keys/visited/steps equal), and the
+     Hamming block kernel on odd and batched shapes;
   3. data and build: make_dataset(0, n, nq), the HNSW built on the host by
      the native engine (efc=96, m=24, M=64), tensors on the card;
   4. oracle: exact k=10 ground truth on the card, its distances equal to
@@ -36,7 +39,23 @@ Run from the root of a checkout. Phases, each printed as it ends:
      version never called;
   8. mini kernel against the plain version at the slice shapes: every
      query at ef=32 and ef=96, and with 4 seeds and tie_bits; both timed,
-     and the exact rerank timed apart.
+     and the exact rerank timed apart;
+  9. the device build, with the mini index freed: make_dataset(0,
+     build_n, nq) and HNSWBuilder.extend_batched at the JAX bench's options
+     (efc=96, m=24, M=64, batch_size 256, a 50k native host warmup, then
+     device chunks with the 1024-point sampled entry and scan_group 8):
+     host and device seconds apart, CUDA-event totals per build phase
+     (entry, search, select, apply), level sizes (equal to the JAX
+     package's at 1M and 100k), edge drops, and the gather and Hamming
+     block kernels launched with their plain versions never called;
+ 10. the build kernels against their plain versions at the build's
+     shapes: one chunk of 4096 searches at ef=96 over the finished base
+     layer (keys/visited/steps equal), then the [4096, 96, 96] select
+     blocks of those beams; both timed, with the pairwise_mxu route beside
+     the block kernel, also at the sampled entry's shape;
+ 11. the device-built index served on the fused path: oracle, fused
+     table, knns at k=10, ef=32, max_steps auto; best of 3,
+     recall@10 >= 0.93.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero
@@ -69,7 +88,31 @@ MINI_CASES = [(64, 48, 3), (64, 96, 7), (32, 32, 3), (32, 48, 31),
               (32, 64, 31), (64, 128, 7), (32, 96, 7)]
 MINI_CAP = 2_200_000  # index rows of the mini phase, at least
 MINI_EFS = (32, 96)  # beam capacity 64 and 128
+DMA_SRC = "hnsw_itu_tpu_torch/csrc/dma_beam_search.cu"
+DMA_REPLACES = "hnsw_itu_tpu/ops/pallas_dma_search.py:355"
+HAM_SRC = "hnsw_itu_tpu_torch/csrc/hamming_block.cu"
+HAM_REPLACES = "hnsw_itu_tpu/ops/pallas_hamming.py:26"
+# the JAX bench's build (bench.py:180-188), IndexOptions defaults spelled out
+BUILD_N = 1_000_000
+BUILD_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
+                  batch_size=256, host_warmup=50_000, entry_sample=1024,
+                  scan_group=8)
+# level sizes the JAX package's builder draws at these options: they depend
+# on the RNG alone, not on the data (BENCH_r05.json, its 1M and 100k legs)
+JAX_LEVEL_NS = {1_000_000: [41230, 1695, 78, 1], 100_000: [4183, 169, 10, 1]}
+# (gather-kernel case) W, ef, seeds, node map, repeated ids
+GATHER_CASES = [(32, 24, 1, False, False), (64, 48, 1, False, False),
+                (64, 96, 1, False, False), (32, 128, 1, False, False),
+                (64, 1, 1, True, False), (32, 24, 4, False, False),
+                (64, 96, 4, True, False), (64, 48, 1, True, True),
+                (32, 128, 4, True, True), (64, 96, 1, False, True)]
+HAM_SHAPES = [(7, 129, 32), (96, 96, 32), (130, 33, 5), (3, 72, 72, 32),
+              (17, 96, 96, 32), (5, 31, 65, 7)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+# __popc: 16 results per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), 132 SMs at the
+# H100 SXM's 1.98 GHz boost clock
+POPC_PER_S = 16 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -425,6 +468,82 @@ def phase_small_mini(dev) -> int:
     return worst
 
 
+def gather_vs_plain(adj, points, node_map, q, d0, eps, *, ef, max_steps):
+    """Gather kernel and its plain version on the same inputs: (max |diff|
+    over keys, visited and steps, the kernel's outputs)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.dma_search import (dma_beam_search,
+                                                   dma_beam_search_plain)
+
+    args = (adj, points, node_map, q, d0, eps)
+    got = dma_beam_search(*args, ef=ef, max_steps=max_steps)
+    want = dma_beam_search_plain(*args, ef=ef, max_steps=max_steps)
+    torch.cuda.synchronize()
+    return max_abs_diff(got, want), got
+
+
+def phase_small_build_kernels(dev):
+    """Small random cases of the two build kernels against their plain
+    versions: (gather max |diff|, Hamming block max |diff|)."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
+                                                hamming_block_plain)
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+
+    worst6 = 0
+    for w, ef, E, mapped, repeats in GATHER_CASES:
+        cap, words, B = 256, 32, 32
+        rng = np.random.default_rng(w + ef + 10 * E + 100 * mapped + repeats)
+        pts, adj = random_graph(rng, cap, w, words)
+        if repeats:
+            adj[:, w // 2 :] = adj[:, : w // 2]
+        nm = None
+        if mapped:  # the graph's ids map into a point array twice as large
+            nm_np = rng.permutation(2 * cap)[:cap].astype(np.int32)
+            big = rng.integers(0, 2**32, size=(2 * cap, words),
+                               dtype=np.uint32)
+            big[nm_np] = pts
+            pts, nm = big, torch.from_numpy(nm_np).to(dev)
+        qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+        seeds = np.stack([rng.choice(cap, size=E, replace=False)
+                          for _ in range(B)]).astype(np.int32)
+        p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+        s = torch.from_numpy(seeds).to(dev)
+        rows = s.long() if nm is None else nm[s.long()].long()
+        d0 = popcount_sum(p[rows] ^ q[:, None, :])
+        if E == 1:
+            s, d0 = s[:, 0], d0[:, 0]
+        err, got = gather_vs_plain(torch.from_numpy(adj).to(dev), p, nm, q,
+                                   d0, s, ef=ef, max_steps=256)
+        worst6 = max(worst6, err)
+        log(f"[2] gather W={w} ef={ef} seeds={E} node_map={mapped} "
+            f"repeats={repeats}: kernel vs plain max |diff| {err} over keys, "
+            f"visited, steps (visited/q {got[1].float().mean():.1f}, "
+            f"steps/q {got[2].float().mean():.1f})")
+        if err:
+            raise AssertionError(f"gather kernel != plain at W={w} ef={ef} "
+                                 f"E={E} mapped={mapped} repeats={repeats}")
+    worst7 = 0
+    for shape in HAM_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        *lead, m, n, words = shape
+        a = as_sketches(rng.integers(0, 2**32, size=(*lead, m, words),
+                                     dtype=np.uint32), dev)
+        b = as_sketches(rng.integers(0, 2**32, size=(*lead, n, words),
+                                     dtype=np.uint32), dev)
+        err = max_abs_diff((hamming_block(a, b),),
+                           (hamming_block_plain(a, b),))
+        worst7 = max(worst7, err)
+        log(f"[2] hamming block {tuple(shape)}: kernel vs plain max |diff| "
+            f"{err}")
+        if err:
+            raise AssertionError(f"hamming kernel != plain at {shape}")
+    return worst6, worst7
+
+
 def phase_mini_query(index, qs, gt_i, dev):
     import numpy as np
     import torch
@@ -559,6 +678,234 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
     return worst, out
 
 
+def phase_device_build(n, nq, dev):
+    """make_dataset + HNSWBuilder.extend_batched at the bench's options: the
+    native host warmup, then the device chunks (gather kernel, Hamming
+    block kernel). Returns (pts, qs, index, record)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models import _build
+    from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    t0 = time.perf_counter()
+    pts, qs = make_dataset(0, n, nq)
+    log(f"[9] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
+    opts = IndexOptions(size=n, **{**BUILD_OPTS, "host_warmup": min(
+        BUILD_OPTS["host_warmup"], n)})
+    b = HNSWBuilder(opts, device=dev)
+    b.timings = {}
+    warm_done = []
+
+    def progress(off):
+        if not warm_done:
+            torch.cuda.synchronize()
+            warm_done.append(time.perf_counter())
+
+    # the build's own launches only
+    dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
+    hamming_block.kernel_launches = hamming_block.plain_calls = 0
+    t0 = time.perf_counter()
+    b.extend_batched(pts, progress=progress)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    index = b.build()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec = {"dma_launches": dma_beam_search.kernel_launches,
+           "dma_plain": dma_beam_search.plain_calls,
+           "ham_launches": hamming_block.kernel_launches,
+           "ham_plain": hamming_block.plain_calls}
+    host_s = warm_done[0] - t0
+    dev_s = t1 - warm_done[0]
+    rec.update(host_s=host_s, device_s=dev_s, finish_s=t2 - t1)
+    log(f"[9] build of {n} points, {opts}: host warmup (native engine, "
+        f"{opts.host_warmup} points, + upload) {host_s:.1f} s, device "
+        f"chunks {dev_s:.1f} s, build() (spill drain, level trim) "
+        f"{t2 - t1:.2f} s; levels {index.level_ns}, ep {index.ep}, "
+        f"total_edge_drops {b.total_edge_drops()}")
+    spans = _build.span_ms(b.timings)
+    rec["spans_ms"] = spans
+    for name in ("entry", "search", "select", "apply"):
+        k = len(b.timings.get(name, ()))
+        ms = spans.get(name, 0.0)
+        log(f"[9]   {name:6s} {ms:10.1f} ms over {k} spans "
+            f"({ms / max(1, k):.3f} ms each; CUDA events, device timeline "
+            "incl. launch gaps)")
+    log(f"[9] gather kernel launches {rec['dma_launches']}, plain_calls "
+        f"{rec['dma_plain']}; hamming block launches {rec['ham_launches']}, "
+        f"plain_calls {rec['ham_plain']}")
+    if min(rec["dma_launches"], rec["ham_launches"]) <= 0 or \
+            rec["dma_plain"] or rec["ham_plain"]:
+        raise AssertionError(f"device build did not run on the kernels: {rec}")
+    want = JAX_LEVEL_NS.get(n)
+    if want is not None:
+        log(f"[9] level_ns {index.level_ns} vs the JAX package's {want}: "
+            f"{'equal' if index.level_ns == want else 'DIFFERENT'}")
+        if index.level_ns != want:
+            raise AssertionError("level sizes differ from the JAX package's")
+    return pts, qs, index, rec
+
+
+def mxu_block(a, b):
+    """``Hamming.pairwise_mxu``'s route on [P, M, words] blocks: bit unpack,
+    one exact float32 torch.matmul, popcount terms."""
+    from hnsw_itu_tpu_torch.ops.metrics import (exact_fp32_matmul,
+                                                popcount_sum, unpack_bits)
+
+    with exact_fp32_matmul():
+        dots = (unpack_bits(a) @ unpack_bits(b).transpose(-1, -2)).int()
+    return popcount_sum(a)[..., :, None] + popcount_sum(b)[..., None, :] \
+        - 2 * dots
+
+
+def phase_build_kernels(index, qs, dev, smi):
+    """The two build kernels against their plain versions at the build's
+    shapes, on the finished index: one chunk of searches (ef = efc, seeded
+    by the sampled entry as the build seeds them), then the select blocks
+    of those beams; both timed with their bounds and yardsticks."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
+    from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
+                                                hamming_block_plain)
+    from hnsw_itu_tpu_torch.ops.metrics import (HAMMING, as_sketches,
+                                                popcount_sum)
+    from hnsw_itu_tpu_torch.ops.mini_search import IINF
+    from hnsw_itu_tpu_torch.ops.search import beam_search_gather
+
+    efc = BUILD_OPTS["ef_construction"]
+    B = BUILD_OPTS["batch_size"] * 16  # one steady-state chunk
+    q = as_sketches(qs[:B], dev)
+    B, words = q.shape
+    adj, points = index.base.adj, index.points
+    W = adj.shape[1]
+    eps = sampled_entry(points, q, index.n, sample_size=SAMPLE,
+                        metric=HAMMING)
+    d0 = popcount_sum(points[eps.long()] ^ q)
+    steps = 2048  # search_select's expansion bound
+    err6, got = gather_vs_plain(adj, points, None, q, d0, eps, ef=efc,
+                                max_steps=steps)
+    keys, vis, stp = got
+    log(f"[10] {B} build searches (one chunk) at ef={efc} over the finished "
+        f"base layer: kernel vs plain max |diff| {err6} over keys, visited, "
+        f"steps (steps/q {stp.float().mean():.2f}, visited/q "
+        f"{vis.float().mean():.1f})")
+    if err6:
+        raise AssertionError("gather kernel != plain at the build shapes")
+    kw = dict(ef=efc, max_steps=steps)
+    k6 = cuda_ms(lambda: dma_beam_search(adj, points, None, q, d0, eps, **kw),
+                 10)
+    p6 = cuda_ms(lambda: beam_search_gather(adj, points, None, q, d0, eps,
+                                            **kw), 1)
+    # bytes the searches must move: each expansion's W ids, each fresh
+    # neighbor's sketch, queries and seeds in, keys and counts out
+    rows = int(stp.long().sum())
+    fresh = int(vis.long().sum()) - B
+    nbytes6 = (rows * W * 4 + fresh * words * 4 + B * words * 4 + B * 8
+               + B * efc * 8 + B * 8)
+    b6 = bound_ms(nbytes6)
+    log(f"[10] on {smi}: gather kernel {k6:.3f} ms, plain version "
+        f"{p6:.3f} ms for {B} searches; {rows} expansions, {fresh} fresh "
+        f"neighbors: {nbytes6 / 1e9:.4f} GB, bound {b6:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s")
+
+    # the select blocks of those beams: [B, efc, efc]
+    bi = (keys & 0xFFFFFFFF).to(torch.int32)
+    cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
+    got7 = hamming_block(cand, cand)
+    err7 = max_abs_diff((got7,), (hamming_block_plain(cand, cand),))
+    log(f"[10] hamming block {tuple(got7.shape)} (select, one chunk): kernel "
+        f"vs plain max |diff| {err7}")
+    if err7:
+        raise AssertionError("hamming kernel != plain at the select shape")
+    k7 = cuda_ms(lambda: hamming_block(cand, cand), 10)
+    p7 = cuda_ms(lambda: hamming_block_plain(cand, cand), 2)
+    l7 = cuda_ms(lambda: mxu_block(cand, cand), 10)
+    if max_abs_diff((mxu_block(cand, cand),), (got7,)):
+        raise AssertionError("pairwise_mxu route != hamming block")
+    pops7 = B * efc * efc * words
+    nbytes7 = cand.numel() * 4 + got7.numel() * 4  # one input (a is b)
+    ops7_ms = pops7 / POPC_PER_S * 1e3
+    b7 = max(ops7_ms, bound_ms(nbytes7))
+    by7 = "operations" if ops7_ms >= bound_ms(nbytes7) else "bytes"
+    log(f"[10] on {smi}: hamming block {k7:.3f} ms, plain {p7:.3f} ms, "
+        f"pairwise_mxu route (unpack + float32 torch.matmul) {l7:.3f} ms; "
+        f"{pops7:.3e} popcounts = {ops7_ms:.4f} ms at {POPC_PER_S:.3e}/s, "
+        f"{nbytes7 / 1e9:.4f} GB = {bound_ms(nbytes7):.4f} ms: bound "
+        f"{b7:.4f} ms by {by7}")
+
+    # the sampled entry's shape: every query against the 1024-point sample
+    qe = as_sketches(qs, dev)
+    sample = points[torch.linspace(0, index.n - 1, SAMPLE,
+                                   device=dev).long()].contiguous()
+    ke = cuda_ms(lambda: hamming_block(qe, sample), 10)
+    le = cuda_ms(lambda: HAMMING.pairwise_mxu(qe, sample), 10)
+    if max_abs_diff((hamming_block(qe, sample),),
+                    (HAMMING.pairwise_mxu(qe, sample),)):
+        raise AssertionError("hamming block != pairwise_mxu at the entry")
+    log(f"[10] on {smi}: entry shape {tuple(qe.shape)} x {SAMPLE}: hamming "
+        f"block {ke:.3f} ms, pairwise_mxu {le:.3f} ms (the entry keeps "
+        "pairwise_mxu)")
+    return {
+        "dma": {"max_abs_err": err6, "ms": k6, "plain_ms": p6,
+                "bound_ms": b6, "searches": B, "steps_q": rows / B},
+        "ham": {"max_abs_err": err7, "ms": k7, "plain_ms": p7,
+                "bound_ms": b7, "library_ms": l7, "bound_by": by7,
+                "entry_ms": ke, "entry_mxu_ms": le},
+    }
+
+
+def phase_build_query(index, pts, qs, dev):
+    """Serve the device-built index on the fused path: oracle, enable_inline
+    (fused table), knns at k=10, ef=32, max_steps auto; recall gate."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    gt_i = phase_oracle(pts, qs, dev, tag="11")
+    nq = len(qs)
+    index.query_entry_sample = SAMPLE
+    index.max_steps = None  # the bench's rule past 200k: max(2 ef, 64)
+    index.query_batch = max(10240, nq)
+    t0 = time.perf_counter()
+    index.enable_inline()
+    torch.cuda.synchronize()
+    if index.fused is None:
+        raise AssertionError("the policy did not pick the fused table")
+    log(f"[11] fused table {tuple(index.fused.data.shape)}: "
+        f"{index.fused.data.numel() * 4 / 1e9:.3f} GB, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    q = as_sketches(qs, dev)
+    index.knns(q, K, EF)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = index.knns(q, K, EF)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
+            or not (np.diff(dists, axis=1) >= 0).all():
+        raise AssertionError("bad result on the device-built index")
+    rec = recall_at_k(ids, gt_i, K)
+    log(f"[11] knns k={K} ef={EF} (max_steps {index._steps_cap(EF)}) on the "
+        f"device-built index: best of 3 {best * 1e3:.2f} ms for {nq} queries "
+        f"= {nq / best:,.0f} QPS, recall@10 {rec:.4f}, visited/q "
+        f"{index.last_stats['visited'] / nq:.1f}, steps/q "
+        f"{index.last_stats['steps'] / nq:.2f}")
+    if rec < RECALL_GATE:
+        raise AssertionError(f"recall@10 {rec:.4f} < {RECALL_GATE}")
+    return {"recall": rec, "knns_ms": best * 1e3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -567,6 +914,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mini-n", type=int, default=MINI_CAP,
                     help="index points of the mini path (the index keeps "
                     f"at least {MINI_CAP} rows)")
+    ap.add_argument("--build-n", type=int, default=BUILD_N,
+                    help="index points of the device-build phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -589,6 +938,7 @@ def main(argv=None) -> int:
     smi = phase_card()
     err_small = phase_small_graphs(dev)
     err_small_mini = phase_small_mini(dev)
+    err_small_dma, err_small_ham = phase_small_build_kernels(dev)
 
     # the fused path: build, table, queries; only its launches count
     fused_beam_search.kernel_launches = 0
@@ -627,6 +977,15 @@ def main(argv=None) -> int:
             f"mini path launches {mini_launches}, plain calls {mini_plain}")
     err_mini, mini = phase_mini_slice_shapes(index, qs, dev, smi,
                                              mini_q[EF]["knns_ms"])
+    del qs, index, gt_i
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the device build: its kernels' launch counts are zeroed inside, just
+    # before extend_batched, and read right after build()
+    pts, qs, index, build = phase_device_build(args.build_n, args.nq, dev)
+    bk = phase_build_kernels(index, qs, dev, smi)
+    served = phase_build_query(index, pts, qs, dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
@@ -655,6 +1014,37 @@ def main(argv=None) -> int:
         "library_ms": None,
         "ef96": mini[MINI_EFS[1]],
         "knns": {str(ef): v for ef, v in mini_q.items()},
+    }, {
+        "name": "dma_beam_search",
+        "route": "cuda",
+        "source": DMA_SRC,
+        "replaces": DMA_REPLACES,
+        "launches": build["dma_launches"],
+        "max_abs_err": max(err_small_dma, bk["dma"]["max_abs_err"]),
+        "ms": bk["dma"]["ms"],
+        "plain_ms": bk["dma"]["plain_ms"],
+        "bound_ms": bk["dma"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "searches": bk["dma"]["searches"],
+        "build": {k: build[k] for k in ("host_s", "device_s", "finish_s",
+                                        "spans_ms")},
+        "knns_on_built_index": served,
+    }, {
+        "name": "hamming_block",
+        "route": "cuda",
+        "source": HAM_SRC,
+        "replaces": HAM_REPLACES,
+        "launches": build["ham_launches"],
+        "max_abs_err": max(err_small_ham, bk["ham"]["max_abs_err"]),
+        "ms": bk["ham"]["ms"],
+        "plain_ms": bk["ham"]["plain_ms"],
+        "bound_ms": bk["ham"]["bound_ms"],
+        "bound_by": bk["ham"]["bound_by"],
+        # Hamming.pairwise_mxu's route: bit unpack + one float32 matmul
+        "library_ms": bk["ham"]["library_ms"],
+        "entry_shape": {"ms": bk["ham"]["entry_ms"],
+                        "pairwise_mxu_ms": bk["ham"]["entry_mxu_ms"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,8 +15,10 @@ Rules the port follows:
 * no kernel is built at import: ``ops/_kernels.py`` compiles
   ``csrc/*.cu`` with ``nvcc`` at first use.
 
-Slice 1 is the query path: the host-built HNSW hierarchy, the sampled
-entry, the fused beam-search kernel and the brute-force oracle.
+Ported so far: the HNSW query path (sampled entry, the fused and the
+mini-table beam-search kernels, the exact reranks), the brute-force
+oracle, and the HNSW build: the native host warmup, then the batched
+device build on the gather beam-search and dense Hamming kernels.
 """
 
 from .device import require_cuda

@@ -1,10 +1,14 @@
-"""Padded-adjacency graph tensors (port of hnsw_itu_tpu/graph.py).
+"""Padded-adjacency graph tensors and their batched edge mutations (port of
+hnsw_itu_tpu/graph.py).
 
     adj: int32[capacity, width]   (entries < 0 mean "no edge")
     deg: int32[capacity]          (live neighbor count per node)
 
-Slice 1 only reads graphs (the host engine writes them); the vectorized
-edge mutations of the batched build come with slice 2.
+The JAX functions are pure and write with ``.at[...].set(..., mode="drop")``
+to an out-of-range row for the entries they skip. Here the mutations
+update ``adj`` and ``deg`` in place (a build holds one copy of its graph)
+and mask the skipped entries out instead of writing them anywhere; each
+function returns the graph it was given.
 """
 
 from __future__ import annotations
@@ -12,6 +16,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .ops.metrics import HAMMING
+from .ops.select import select_neighbors_points
 
 
 class GraphArrays(NamedTuple):
@@ -25,3 +32,101 @@ class GraphArrays(NamedTuple):
     @property
     def width(self) -> int:
         return self.adj.shape[1]
+
+
+def make_graph(capacity: int, width: int, *, device) -> GraphArrays:
+    return GraphArrays(
+        adj=torch.full((capacity, width), -1, dtype=torch.int32,
+                       device=device),
+        deg=torch.zeros(capacity, dtype=torch.int32, device=device),
+    )
+
+
+def set_rows(g: GraphArrays, ids: torch.Tensor,
+             rows: torch.Tensor) -> GraphArrays:
+    """Overwrite whole rows (the forward edges of freshly inserted points)
+    and their degrees; ``ids`` < 0 are skipped, ``rows`` entries < 0 are
+    padding."""
+    ok = ids >= 0
+    t = ids[ok].long()
+    g.adj[t] = rows[ok]
+    g.deg[t] = (rows[ok] >= 0).sum(dim=1, dtype=torch.int32)
+    return g
+
+
+class AppendResult(NamedTuple):
+    graph: GraphArrays
+    # per edge, sorted by (target, source):
+    targets: torch.Tensor  # int32[E] target ids (invalid -> capacity)
+    sources: torch.Tensor  # int32[E] new-point ids aligned with targets
+    cols: torch.Tensor  # int32[E] column each edge was stored at (clamped)
+    written: torch.Tensor  # bool[E] stored (False: row full or invalid)
+    incoming: torch.Tensor  # int32[capacity+1] per-target incoming count
+    pos: torch.Tensor  # int32[E] unclamped landing position (>= W: overflow)
+
+
+def append_reverse_edges(g: GraphArrays, targets: torch.Tensor,
+                         sources: torch.Tensor) -> AppendResult:
+    """Place each ``source`` into ``adj[target]`` after the current degree,
+    edges grouped by target in (target, source) order. Pairs with target <
+    0 are ignored; appends past the row width are not stored
+    (``written`` False)."""
+    cap, W = g.adj.shape
+    t = torch.where(targets >= 0, targets, cap).to(torch.int64)
+    s = sources.to(torch.int64)
+    # one int64 key in (target, source) order: s + 2^31 fits 32 bits
+    o = torch.argsort((t << 32) + (s + (1 << 31)))
+    t, s = t[o], s[o]
+    n = t.shape[0]
+    idx = torch.arange(n, device=t.device)
+    run_start = torch.ones(n, dtype=torch.bool, device=t.device)
+    run_start[1:] = t[1:] != t[:-1]
+    seg_start = torch.cummax(torch.where(run_start, idx, 0), dim=0).values
+    pos = g.deg[t.clamp(0, cap - 1)].to(torch.int64) + idx - seg_start
+    ok = (t < cap) & (pos < W)
+    col = pos.clamp(0, W - 1)
+    g.adj[t[ok], col[ok]] = s[ok].to(torch.int32)
+    g.deg.index_add_(0, t[ok], torch.ones_like(t[ok], dtype=torch.int32))
+    incoming = torch.bincount(t, minlength=cap + 1).to(torch.int32)
+    return AppendResult(g, t.to(torch.int32), s.to(torch.int32),
+                        col.to(torch.int32), ok, incoming,
+                        pos.to(torch.int32))
+
+
+def prune_rows(g: GraphArrays, node_ids: torch.Tensor,
+               node_pts: torch.Tensor, nbr_pts: torch.Tensor, m_max: int,
+               extra_ids: torch.Tensor | None = None,
+               extra_pts: torch.Tensor | None = None) -> GraphArrays:
+    """Re-run the diversity heuristic over each listed node's neighborhood
+    and rebuild its row (the degree-cap prune of insert_neighbors), on
+    Hamming distances (the JAX function's ``metric``; the port has only
+    Hamming).
+
+    Args:
+      node_ids: int32[P] nodes to prune (< 0 entries are skipped).
+      node_pts: int32[P, words] the nodes' own points.
+      nbr_pts:  int32[P, W, words] the points of each node's current row.
+      m_max: neighbors kept per row (<= W).
+      extra_ids/extra_pts: optional [P, X] spilled candidates (-1 padded)
+        and their points, joining each row's candidate set.
+    """
+    cap, W = g.adj.shape
+    rows = g.adj[node_ids.long().clamp(0, cap - 1)]  # [P, W]
+    live = (node_ids >= 0)[:, None]
+    valid = (rows >= 0) & live
+    if extra_ids is not None:
+        rows = torch.cat([rows, extra_ids], dim=1)
+        valid = torch.cat([valid, (extra_ids >= 0) & live], dim=1)
+        nbr_pts = torch.cat([nbr_pts, extra_pts], dim=1)
+    d = HAMMING.one_to_many(node_pts, nbr_pts)
+    sel_rows, _, n_sel = select_neighbors_points(nbr_pts, d, rows, valid,
+                                                 m_max)
+    if W > m_max:
+        sel_rows = torch.cat([sel_rows, torch.full(
+            (sel_rows.shape[0], W - m_max), -1, dtype=torch.int32,
+            device=sel_rows.device)], dim=1)
+    ok = node_ids >= 0
+    t = node_ids[ok].long()
+    g.adj[t] = sel_rows[ok]
+    g.deg[t] = n_sel[ok]
+    return g

@@ -28,10 +28,9 @@ class KnnResult(NamedTuple):
 @dataclass
 class IndexOptions:
     """The JAX package's ``IndexOptions``: same fields, same defaults, so a
-    saved index's options load unchanged. Slice 1 reads ``size``,
-    ``ef_construction``, ``connections``, ``max_connections``, ``seed``
-    and ``host_warmup``; the batched device build (slice 2) reads the
-    rest."""
+    saved index's options load unchanged. ``HNSWBuilder`` reads them all;
+    ``expand`` > 1 is not ported (the build searches with expand=1, the
+    default) and ``reorder=True`` raises (ROADMAP §1, item 16)."""
 
     ef_construction: int = 100
     connections: int = 16

@@ -1,5 +1,5 @@
 """HNSW — hierarchical navigable small world index (port of
-hnsw_itu_tpu/models/hnsw.py, query side and host build).
+hnsw_itu_tpu/models/hnsw.py: the index's query side and the builder).
 
 Each level holds three tensors, as in the JAX package:
 
@@ -7,17 +7,23 @@ Each level holds three tensors, as in the JAX package:
     down:     int32[cap_l]  local slot -> slot in the level below
     graph:    GraphArrays   adjacency over local slots
 
-The port builds the whole hierarchy on the host with the native engine
-(the JAX package's ``host_warmup = size`` route, ``--single-threaded``) and
-serves queries on the device: a sampled entry, then one beam-search
-kernel over the base layer: the fused kernel where the fused table can
-serve the index, else the mini-table kernel with an exact rerank (past
-2^21 points, or where the fused table does not fit the card). Paths not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+``HNSWBuilder`` builds as the JAX builder does: the native host engine
+inserts the first ``host_warmup`` points sequentially with the full
+hierarchy, then the batched device build inserts the rest in progressive
+chunks (``models/_build.py``): per-point level draws, per-level groups,
+the ef=1 descent and the level inserts, and the base-layer chunk steps,
+with the gather beam-search kernel and the dense Hamming kernel on the
+card. ``HNSW`` serves queries on the device: a sampled entry, then one
+beam-search kernel over the base layer: the fused kernel where the fused
+table can serve the index, else the mini-table kernel with an exact
+rerank (past 2^21 points, or where the fused table does not fit the
+card). Paths not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -25,11 +31,12 @@ import numpy as np
 import torch
 
 from .. import native
-from ..graph import GraphArrays
+from ..graph import GraphArrays, make_graph
 from ..ops.entry import sampled_entry, sampled_entry_topk
 from ..ops.fused_search import MAX_EF, materialize_fused
 from ..ops.metrics import as_sketches, get_metric
 from ..ops.mini_search import materialize_mini
+from . import _build
 from .base import ID_INF, IndexOptions, KnnResult, LazyStats, rng_seed
 from .nsw import (_fused_query_eligible, _mini_config_for, _query_step_fused,
                   _query_step_mini)
@@ -39,6 +46,14 @@ class Level(NamedTuple):
     node_ids: torch.Tensor  # int32[cap_l]
     down: torch.Tensor  # int32[cap_l]
     graph: GraphArrays
+
+
+def _make_level(cap: int, width: int, device) -> Level:
+    return Level(
+        node_ids=torch.zeros(cap, dtype=torch.int32, device=device),
+        down=torch.zeros(cap, dtype=torch.int32, device=device),
+        graph=make_graph(cap, width, device=device),
+    )
 
 
 class HNSW:
@@ -183,10 +198,13 @@ class HNSW:
 
 
 class HNSWBuilder:
-    """Builds an HNSW index with the native host engine, as the JAX
-    ``HNSWBuilder`` does with ``host_warmup = size``: the same options give
-    the same graph, levels and entry point in both packages. The finished
-    index's tensors go to ``device``."""
+    """Builds an HNSW index as the JAX ``HNSWBuilder`` does: the native
+    host engine for the first ``host_warmup`` points (the whole build when
+    ``host_warmup >= size``, the JAX ``--single-threaded`` route), then the
+    batched device build for the rest. The same options and points give
+    the same graph, levels, entry point and edge drops in both packages
+    (the JAX builder on its gather route; see ``models/_build.py``). The
+    builder's tensors, and the finished index's, live on ``device``."""
 
     MAX_HOST_LEVELS = 16  # geometric draw: P(level >= 16) ~ m^-16
 
@@ -195,18 +213,36 @@ class HNSWBuilder:
         self.opts = options or IndexOptions()
         if self.opts.size <= 0:
             raise ValueError("IndexOptions.size must be set (preallocation)")
+        if self.opts.reorder:
+            raise NotImplementedError(
+                "reorder=True: the BFS reorder is not ported yet "
+                "(ROADMAP §1, item 16)")
+        if self.opts.expand != 1:
+            raise NotImplementedError(
+                "expand > 1: the E-way beam expansion is not ported yet "
+                "(ROADMAP §1, item 4)")
         self.metric = get_metric(metric) if isinstance(metric, str) else metric
         self.device = torch.device(device)
         self.n = 0
         self.ep = None  # local slot in the top level (base id if no levels)
-        self.points = None  # numpy uint32[cap, words] until build()
-        self.adj = self.deg = None
-        self.levels_np: list[tuple[np.ndarray, ...]] = []
+        self.points = None  # int32[size, words] on device, first extend
+        self.base = make_graph(self.opts.size, self.opts.max_connections,
+                               device=self.device)
+        self.levels: list[Level] = []
         self.level_ns: list[int] = []
+        self.spill = _build.make_spill(self.opts.size, device=self.device)
+        self.edge_drops = []  # per-step reverse-edge drop counts (tensors)
+        self.timings = None  # dict: CUDA event pairs by phase (_build)
         # deterministic level RNG (hnsw.rs:24-30)
         self._rng = np.random.RandomState(rng_seed(self.opts))
         self._ml = 1.0 / math.log(max(2, self.opts.connections))
 
+    def total_edge_drops(self) -> int:
+        """Reverse edges lost to full rows across the whole build
+        (unrecoverable by the prune pass; see _build.apply_inserts)."""
+        return int(sum(int(d) for d in self.edge_drops))
+
+    # -- level machinery ------------------------------------------------------
     def _random_level(self) -> int:
         # floor(-ln(U) * 1/ln(m)) — hnsw.rs:37-40
         u = max(self._rng.random_sample(), 1e-12)
@@ -219,27 +255,135 @@ class HNSWBuilder:
         cap = max(64, int(2 * expect))
         return 1 << (cap - 1).bit_length()
 
-    def extend_batched(self, points) -> None:
-        """Insert ``points`` with the host engine. Only the whole build on
-        the host is ported: fewer than all points in ``host_warmup``, or a
-        second call, needs the batched device build."""
-        pts = np.ascontiguousarray(points)
-        if pts.dtype == np.int32:
-            pts = pts.view(np.uint32)
-        warm = min(self.opts.host_warmup, pts.shape[0])
-        if self.n > 0 or warm < 2 or warm < pts.shape[0]:
-            raise NotImplementedError("batched device build: slice 2, see ROADMAP")
-        if pts.shape[0] > self.opts.size:
-            raise ValueError(f"{pts.shape[0]} points > size {self.opts.size}")
-        self._host_warmup(pts)
+    def _grow_level(self, l: int, need: int) -> None:
+        lv = self.levels[l]
+        cap = lv.graph.capacity
+        if need <= cap:
+            return
+        new_cap = max(need, 2 * cap)
+        new_cap = 1 << (new_cap - 1).bit_length()
+        ext = _make_level(new_cap - cap, lv.graph.width, self.device)
+        self.levels[l] = Level(
+            torch.cat([lv.node_ids, ext.node_ids]),
+            torch.cat([lv.down, ext.down]),
+            GraphArrays(torch.cat([lv.graph.adj, ext.graph.adj]),
+                        torch.cat([lv.graph.deg, ext.graph.deg])),
+        )
 
-    def _host_warmup(self, pts: np.ndarray) -> None:
-        """CPU-native sequential build with the full hierarchy (the JAX
-        ``HNSWBuilder._host_warmup``: the same draws, buffers and call)."""
-        warm = pts.shape[0]
+    def _grow_capacity(self, need: int) -> None:
+        """Base-layer growth past ``size`` (the JAX
+        ``NSWBuilder._grow_capacity``): the next power-of-two multiple of
+        the capacity that holds ``need`` rows. The spill buffer's junk row
+        stays last."""
+        cap = self.opts.size
+        new = max(1, cap)
+        while new < need:
+            new *= 2
+        if new == cap:
+            return
+        pad = new - cap
+        self.opts = dataclasses.replace(self.opts, size=new)
+        ext = make_graph(pad, self.base.width, device=self.device)
+        self.base = GraphArrays(torch.cat([self.base.adj, ext.adj]),
+                                torch.cat([self.base.deg, ext.deg]))
+        self.spill = torch.cat([self.spill[:-1], _build.make_spill(
+            pad, self.spill.shape[1], device=self.device)])
+        if self.points is not None:
+            self.points = torch.cat([self.points, self.points.new_zeros(
+                (pad, self.points.shape[1]))])
+
+    # -- builder API ----------------------------------------------------------
+    def _ensure_points(self, sample: np.ndarray) -> None:
+        if self.points is None:
+            self.points = torch.zeros((self.opts.size, sample.shape[1]),
+                                      dtype=torch.int32, device=self.device)
+
+    def _write(self, chunk: np.ndarray) -> None:
+        _build.write_points(self.points, as_sketches(chunk, self.device),
+                            self.n)
+        self.n += chunk.shape[0]
+
+    def add(self, point) -> None:
+        self.extend(_as_u32(point)[None])
+
+    def extend(self, points) -> None:
+        """Sequential inserts: chunks of one, per-point level draw."""
+        pts = _as_u32(points)
+        self._ensure_points(pts)
+        for row in pts:
+            self._insert_chunk(row[None])
+
+    def extend_batched(self, points, progress=None) -> None:
+        """Host-native sequential warmup of the first ``host_warmup``
+        points, then progressive chunks on the device. Levels are drawn
+        per point and each chunk is inserted in per-level groups, highest
+        first. With ``scan_group = G > 1``, steady-state chunks go in
+        groups of G: the upper-level groups span the whole G-chunk window,
+        and the base inserts are deferred and run in id order as G chunk
+        steps (the JAX scanned dispatch, as a loop). ``progress`` is called
+        with the running row count after the warmup and after every
+        group."""
+        pts = _as_u32(points)
+        self._ensure_points(pts)
+        off = self._host_warmup(pts)
+        if off and progress:
+            progress(off)
+        if self.ep is None and pts.shape[0] > 0:
+            self._insert_chunk(pts[:1])
+            off = 1
+        max_chunk = self.opts.batch_size * 16
+        sched = _build.chunk_schedule(self.n, pts.shape[0] - off,
+                                      max_chunk=max_chunk)
+        i = 0
+        while i < len(sched):
+            c = sched[i]
+            G = _build.scan_group_at(
+                sched, i, max_chunk, self.opts.scan_group,
+                entry_ready=(self.opts.entry_sample > 0
+                             and self.n > self.opts.entry_sample))
+            chunk = pts[off : off + G * c]
+            n0 = self.n
+            if self.n + G * c > self.opts.size:
+                self._grow_capacity(self.n + G * c)
+            self._write(chunk)
+            # one draw per point in id order: the same RNG stream whether
+            # or not chunks are grouped
+            levels = np.array([self._random_level() for _ in range(G * c)])
+            deferred = []
+            for lvl in sorted(set(levels.tolist()), reverse=True):
+                if lvl == 0 and G > 1:
+                    continue  # the grouped base path below
+                ids = (n0 + np.nonzero(levels == lvl)[0]).astype(np.int32)
+                d = self._insert_registered(ids, int(lvl), defer_base=G > 1)
+                if d is not None:
+                    deferred.append(d)
+            if G > 1:
+                ids0 = (n0 + np.nonzero(levels == 0)[0]).astype(np.int32)
+                parts = [(ids0, torch.full((ids0.shape[0],), -1,
+                                           dtype=torch.int32,
+                                           device=self.device))] + deferred
+                mids = np.concatenate([p[0] for p in parts])
+                meps = torch.cat([p[1] for p in parts])
+                order = np.argsort(mids, kind="stable")
+                self._insert_base_grouped(
+                    mids[order],
+                    meps[torch.from_numpy(order).to(self.device)], c)
+            off += G * c
+            i += G
+            if progress:
+                progress(off)
+
+    def _host_warmup(self, pts: np.ndarray) -> int:
+        """CPU-native sequential build of the first ``host_warmup`` points
+        with the full hierarchy (the JAX ``HNSWBuilder._host_warmup``: the
+        same draws, buffers and call), then its arrays go to the device.
+        Returns the number of points inserted (0: not run)."""
+        warm = min(self.opts.host_warmup, pts.shape[0])
+        if self.n > 0 or warm < 2:
+            return 0
         cap, W = self.opts.size, self.opts.max_connections
-        pts_np = np.zeros((cap, *pts.shape[1:]), pts.dtype)
-        pts_np[:warm] = pts
+        pts_np = np.zeros((cap, pts.shape[1]), np.uint32)
+        pts_np[:warm] = pts[:warm]
         adj_np = np.full((cap, W), -1, np.int32)
         deg_np = np.zeros((cap,), np.int32)
         # point 0 is pinned at the (empty) top level and consumes no draw
@@ -260,33 +404,203 @@ class HNSWBuilder:
             lvl_down=lvl_down, lvl_adj=lvl_adj, lvl_deg=lvl_deg,
             level_ns=level_ns, ep=0,
         )
-        self.points, self.adj, self.deg = pts_np, adj_np, deg_np
+        dev = self.device
+        self.points = as_sketches(pts_np, dev)
+        self.base = GraphArrays(torch.from_numpy(adj_np).to(dev),
+                                torch.from_numpy(deg_np).to(dev))
         off = 0
         for l in range(ml):
             if level_ns[l] <= 0:
                 break
             sl = slice(off, off + caps[l])
-            self.levels_np.append((lvl_node_ids[sl], lvl_down[sl],
-                                   lvl_adj[sl], lvl_deg[sl]))
+            t = [torch.from_numpy(a[sl]).to(dev)
+                 for a in (lvl_node_ids, lvl_down, lvl_adj, lvl_deg)]
+            self.levels.append(Level(t[0], t[1], GraphArrays(t[2], t[3])))
             self.level_ns.append(int(level_ns[l]))
             off += caps[l]
         self.ep = int(ep)
         self.n = warm
+        return warm
 
     def build(self) -> HNSW:
-        """The finished index on ``device``. Level arrays shrink from build
-        capacity to a pow2 of their node count (floor 8), as in the JAX
-        ``build()``. Call ``enable_inline()`` on the result before
-        querying."""
+        """The finished index on ``device``: leftover spill entries get up
+        to four prune passes (those still left count as edge drops), and
+        level arrays shrink from build capacity to a pow2 of their node
+        count (floor 8), as in the JAX ``build()``. Call
+        ``enable_inline()`` on the result before querying."""
         if self.points is None:
             raise ValueError("empty index: call extend_batched first")
+        self._drain_spill()
+        self.edge_drops.append((self.spill[:-1] >= 0).sum(dtype=torch.int32))
         levels = []
-        for (node_ids, down, adj, deg), nl in zip(self.levels_np,
-                                                  self.level_ns):
+        for lv, nl in zip(self.levels, self.level_ns):
             m = max(8, 1 << max(0, (nl - 1).bit_length()))
-            levels.append((node_ids[:m], down[:m], adj[:m], deg[:m]))
-        from ..utils.serialize import from_numpy
+            levels.append(Level(lv.node_ids[:m], lv.down[:m],
+                                GraphArrays(lv.graph.adj[:m],
+                                            lv.graph.deg[:m])))
+        return HNSW(self.points, self.n, self.base, levels, self.level_ns,
+                    self.ep, self.metric, self.opts, device=self.device)
 
-        return from_numpy(self.points, self.adj, self.deg, levels,
-                          self.level_ns, self.ep, self.n, self.opts,
-                          self.device, metric=self.metric.name)
+    def _drain_spill(self, max_passes: int = 4) -> None:
+        """Prune-only passes on the base layer consuming leftover spill
+        entries."""
+        budget = min(self.opts.size,
+                     max(self.opts.prune_budget, self.opts.batch_size * 16))
+        none = torch.empty((0,), dtype=torch.int32, device=self.device)
+        for _ in range(max_passes):
+            if not bool((self.spill[:-1] >= 0).any()):
+                break
+            self.base, self.spill, _ = _build.apply_inserts(
+                self.points, None, self.base, none, none.reshape(0, 1),
+                self.spill, prune_budget=budget, timings=self.timings)
+
+    # -- the chunk insert -----------------------------------------------------
+    def _insert_chunk(self, chunk: np.ndarray, level: int | None = None):
+        """Write + insert a contiguous chunk (the sequential path: chunks
+        of one, per-point level draw)."""
+        c = chunk.shape[0]
+        if self.n + c > self.opts.size:
+            self._grow_capacity(self.n + c)
+        first = self.ep is None
+        n0 = self.n
+        self._write(chunk)
+        base_ids = (n0 + np.arange(c)).astype(np.int32)
+        if first:
+            # the first point is the entry point, pinned at the top level
+            self.ep = int(base_ids[0])
+            base_ids = base_ids[1:]
+            if base_ids.shape[0] == 0:
+                return
+        if level is None:
+            level = self._random_level()
+        self._insert_registered(base_ids, level)
+
+    def _insert_registered(self, base_ids: np.ndarray, level: int,
+                           defer_base: bool = False):
+        """Insert already-written points (ids = their base rows) at
+        ``level``. With ``defer_base`` the base-layer insert is not run;
+        (base_ids, entries) are returned for the grouped base steps.
+
+        The JAX builder pads every group to a bucket of ``cpad`` rows
+        (pow2, floor 256; 8 for one point) with id -1. The padding is kept
+        where it shows: level registration writes ``cpad`` slots (the
+        padding's slots hold node id -1 past ``level_ns`` until the next
+        group overwrites them), levels grow for ``cpad`` rows, and prune
+        budgets scale with ``cpad``. Searches run on the real rows only."""
+        c = base_ids.shape[0]
+        if c == 0:
+            return None
+        cpad = max(256, 1 << (c - 1).bit_length()) if c > 1 else 8
+        ids_pad = np.concatenate([base_ids, np.full(cpad - c, -1, np.int32)])
+        # this chunk's descent and inserts start from the OLD entry point
+        # and layers
+        L_old = len(self.levels)
+        ep_old = self.ep
+        new_ep = False
+        while len(self.levels) < level:
+            l = len(self.levels)
+            self.levels.append(_make_level(self._level_capacity(l),
+                                           self.opts.max_connections,
+                                           self.device))
+            self.level_ns.append(0)
+            new_ep = True
+        dev = self.device
+        slots = []  # padded local slots per occupied level
+        for l in range(level):
+            nl = self.level_ns[l]
+            self._grow_level(l, nl + cpad)
+            lv = self.levels[l]
+            loc = nl + np.arange(cpad, dtype=np.int32)
+            below = ids_pad if l == 0 else slots[l - 1]
+            lv.node_ids[nl : nl + cpad] = torch.from_numpy(ids_pad).to(dev)
+            lv.down[nl : nl + cpad] = torch.from_numpy(below).to(dev)
+            self.level_ns[l] = nl + c
+            slots.append(loc)
+        if new_ep:
+            self.ep = int(slots[-1][0])
+
+        ids_t = torch.from_numpy(base_ids).to(dev)
+        q = self.points[ids_t.long()]
+        n0 = int(base_ids[0])
+        # level-0 points take the sampled entry and skip the descent
+        if (level == 0 and self.opts.entry_sample > 0
+                and n0 > self.opts.entry_sample):
+            self._insert_graph(ids_t, q, None, cpad, n0)
+            return None
+        eps = torch.full((c,), ep_old, dtype=torch.int32, device=dev)
+        for l in range(L_old - 1, level - 1, -1):
+            lv = self.levels[l]
+            eps = _build.level_descend_step(
+                self.points, lv.node_ids, lv.graph.adj, lv.down, q, eps,
+                timings=self.timings)
+        # insert top-down; a brand-new layer holds only this group: enter
+        # at its first slot and leave the old layers' entry chain alone
+        for l in range(level - 1, -1, -1):
+            loc = torch.from_numpy(slots[l][:c]).to(dev)
+            if l >= L_old:
+                self._insert_level(l, q, loc,
+                                   torch.full_like(loc, int(slots[l][0])),
+                                   cpad)
+            else:
+                eps = self._insert_level(l, q, loc, eps, cpad)
+        if defer_base:
+            return base_ids, eps
+        self._insert_graph(ids_t, q, eps, cpad, n0)
+        return None
+
+    def _insert_level(self, l: int, q, loc, eps, cpad: int):
+        lv = self.levels[l]
+        g, next_eps, dropped = _build.level_chunk_step(
+            self.points, lv.node_ids, lv.graph, lv.down, q, loc, eps,
+            efc=self.opts.ef_construction, m=self.opts.connections,
+            prune_budget=min(lv.graph.capacity,
+                             max(self.opts.prune_budget, cpad)),
+            timings=self.timings)
+        self.edge_drops.append(dropped)
+        self.levels[l] = Level(lv.node_ids, lv.down, g)
+        return next_eps
+
+    def _insert_graph(self, ids_t, q, eps, cpad: int, n0: int) -> None:
+        """One base-layer chunk step; ``eps`` None: the sampled entry over
+        the rows before ``n0``, the group's first id."""
+        self.base, self.spill, dropped = _build.chunk_step(
+            self.points, None, self.base, self.spill, q, ids_t, n0, eps,
+            efc=self.opts.ef_construction, m=self.opts.connections,
+            prune_budget=min(self.opts.size,
+                             max(self.opts.prune_budget, cpad)),
+            entry_sample=self.opts.entry_sample, use_entry=eps is None,
+            timings=self.timings)
+        self.edge_drops.append(dropped)
+
+    def _insert_base_grouped(self, base_ids: np.ndarray, eps, c: int):
+        """A group's base inserts in id order, as consecutive chunk steps
+        of ``c`` rows: rows whose entry is >= 0 keep their descent entry,
+        the rest take the sampled entry, whose population bound is the
+        group's start for every step (as in the JAX scanned dispatch)."""
+        n_all = base_ids.shape[0]
+        if n_all % c != 0:
+            raise AssertionError(f"grouped base insert expects whole chunks: "
+                                 f"{n_all} rows vs chunk size {c}")
+        n0 = int(base_ids[0])
+        ids_t = torch.from_numpy(base_ids).to(self.device)
+        for s in range(0, n_all, c):
+            ids = ids_t[s : s + c]
+            self.base, self.spill, dropped = _build.chunk_step(
+                self.points, None, self.base, self.spill,
+                self.points[ids.long()], ids, n0, eps[s : s + c],
+                efc=self.opts.ef_construction, m=self.opts.connections,
+                prune_budget=min(self.opts.size,
+                                 max(self.opts.prune_budget, c)),
+                entry_sample=self.opts.entry_sample, use_entry=True,
+                timings=self.timings)
+            self.edge_drops.append(dropped)
+
+
+def _as_u32(points) -> np.ndarray:
+    """Host sketches as C-contiguous uint32 (int32 bit patterns kept)."""
+    pts = np.ascontiguousarray(points)
+    if pts.dtype == np.int32:
+        pts = pts.view(np.uint32)
+    if pts.dtype != np.uint32:
+        raise TypeError(f"sketch arrays are uint32 or int32, got {pts.dtype}")
+    return pts

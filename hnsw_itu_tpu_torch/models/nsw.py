@@ -3,8 +3,8 @@ hnsw_itu_tpu/models/nsw.py): the fused table (``_fused_query_eligible``,
 ``_query_step_fused``) and, past the fused table's limits, the mini table
 (``_mini_config_for``, ``_query_step_mini``).
 
-The NSW index class and its batched build come with slice 2; HNSW
-(models/hnsw.py) already queries through these steps.
+The NSW index class and ``NSWBuilder`` are still to port (ROADMAP §1);
+HNSW (models/hnsw.py) already queries through these steps.
 """
 
 from __future__ import annotations

@@ -87,6 +87,10 @@ _ENTRIES = {
                           [_P] * 7 + [_I] * 8 + [_P]),
     "mini_beam_search": ("hnsw_mini_beam_search",
                          [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "dma_beam_search": ("hnsw_dma_beam_search",
+                        [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]
+                        + [_I] * 3 + [_P]),
+    "hamming_block": ("hnsw_hamming_block", [_P] * 3 + [_I] * 4 + [_P]),
 }
 KERNELS = tuple(_ENTRIES)
 
@@ -169,3 +173,44 @@ def launch_mini_beam_search(queries, init_keys, table, out_keys,
             cap, W, mv, ef, tie_bits, max_steps, stream,
         )
     _check_rc(lib, rc, "mini_beam_search")
+
+
+def launch_dma_beam_search(queries, init_keys, adj, points, node_map,
+                           out_keys, out_visited, out_steps, *, ef: int,
+                           max_steps: int) -> None:
+    """Launch the gather beam-search kernel on the current stream of the
+    queries' device: ``init_keys`` int64[B, E] ascending, ``out_keys``
+    int64[B, ef], ``node_map`` an int32 tensor or None (identity). The
+    caller has checked dtypes, shapes and contiguity."""
+    if points.data_ptr() % 16:
+        raise ValueError("gather kernel needs 16-byte aligned points")
+    lib = _load("dma_beam_search")
+    dev = queries.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cap, W = adj.shape
+        rc = lib.hnsw_dma_beam_search(
+            queries.data_ptr(), queries.shape[1], init_keys.data_ptr(),
+            init_keys.shape[1], adj.data_ptr(), cap, W, points.data_ptr(),
+            points.shape[0], None if node_map is None else node_map.data_ptr(),
+            out_keys.data_ptr(), out_visited.data_ptr(), out_steps.data_ptr(),
+            queries.shape[0], ef, max_steps, stream,
+        )
+    _check_rc(lib, rc, "dma_beam_search")
+
+
+def launch_hamming_block(a, b, out) -> None:
+    """Launch the Hamming block kernel on the current stream of ``a``'s
+    device: ``a`` int32[(P,) M, words], ``b`` int32[(P,) N, words],
+    ``out`` int32[(P,) M, N]. The caller has checked dtypes, shapes and
+    contiguity."""
+    lib = _load("hamming_block")
+    dev = a.device
+    P = a.shape[0] if a.dim() == 3 else 1
+    M, words = a.shape[-2:]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hnsw_hamming_block(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), P, M, b.shape[-2], words,
+                                    stream)
+    _check_rc(lib, rc, "hamming_block")

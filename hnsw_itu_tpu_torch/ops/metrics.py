@@ -106,6 +106,16 @@ class Hamming:
         dots = bit_dots(unpack_bits(a), unpack_bits(b))
         return popcount_sum(a)[:, None] + popcount_sum(b)[None, :] - 2 * dots
 
+    @staticmethod
+    def pairwise_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """[M, W] x [N, W] -> int32 [M, N], or batched [P, M, W] x
+        [P, N, W] -> [P, M, N], through ``ops/hamming.py`` (the dense
+        Hamming kernel on the card). The build's select-neighbors blocks
+        use it; the entry and the oracle keep ``pairwise_mxu``."""
+        from .hamming import hamming_block
+
+        return hamming_block(a, b)
+
 
 HAMMING = Hamming()
 

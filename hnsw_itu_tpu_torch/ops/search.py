@@ -30,6 +30,12 @@ two-key branch of ``beam_search`` (``:126-252``) with ``expand=1`` and
 ``dedup="beam"``, run on the mini table's prefix sketches
 (``ops/mini_search.py``): the contract the JAX package holds its TPU mini
 kernels to (``tests/test_dma_search.py::test_mini_matches_xla_on_prefix``).
+
+``beam_search_gather`` (kernel ``csrc/dma_beam_search.cu``) is the same
+two-key search over a plain adjacency array, each neighbor's full sketch
+gathered from the point array (through a node map on the upper HNSW
+levels): the build's search, and the function of the JAX package's
+``dma_beam_search``.
 """
 
 from __future__ import annotations
@@ -174,21 +180,101 @@ def beam_search_two_plane(table: torch.Tensor, queries: torch.Tensor,
         if tie_bits:
             nbr = bitrev_ids(nbr, tie_bits)
         ck = torch.where(ok, (cd << 32) | nbr.to(torch.int64), KEY_INF)
+        bk, bx, fresh = _merge_by_id(bk, bx, ck, is_cand, ef)
+        vis += fresh
+    return bk, vis, steps
 
-        mk = torch.cat([bk, ck], dim=1)
-        mx = torch.cat([bx, torch.zeros_like(ck, dtype=torch.bool)], dim=1)
-        # sort by (id, not-expanded): equal ids sit together with the
-        # expanded (or the beam's) copy first; every later copy is a dup
-        mi = mk & low
-        o = torch.argsort(mi * 2 + (~mx).to(torch.int64), dim=1,
-                          stable=True)
-        mk, mx, mi = mk.gather(1, o), mx.gather(1, o), mi.gather(1, o)
-        cand = is_cand.expand(B, -1).gather(1, o)
-        dup = torch.zeros_like(mx)
-        dup[:, 1:] = mi[:, 1:] == mi[:, :-1]
-        vis += ((~dup) & cand & (mi < IINF)).sum(dim=1, dtype=torch.int32)
-        mk = torch.where(dup, KEY_INF, mk)
-        mx = mx & ~dup
-        o = torch.argsort(mk, dim=1, stable=True)[:, :ef]
-        bk, bx = mk.gather(1, o), mx.gather(1, o)
+
+def _merge_by_id(bk, bx, ck, is_cand, ef: int):
+    """The XLA two-key merge (``ops/search.py:222-244`` of the JAX
+    package): candidate keys ``ck`` int64[B, C] (``KEY_INF`` = none) into
+    the beam ``bk``/``bx`` [B, ef]. A candidate whose id is in the beam, or
+    repeats an earlier candidate, is a duplicate. Returns (beam keys, beam
+    flags, int32[B] fresh candidates)."""
+    from .mini_search import IINF, KEY_INF
+
+    B = bk.shape[0]
+    mk = torch.cat([bk, ck], dim=1)
+    mx = torch.cat([bx, torch.zeros_like(ck, dtype=torch.bool)], dim=1)
+    # sort by (id, not-expanded): equal ids sit together with the
+    # expanded (or the beam's) copy first; every later copy is a dup
+    mi = mk & 0xFFFFFFFF
+    o = torch.argsort(mi * 2 + (~mx).to(torch.int64), dim=1, stable=True)
+    mk, mx, mi = mk.gather(1, o), mx.gather(1, o), mi.gather(1, o)
+    cand = is_cand.expand(B, -1).gather(1, o)
+    dup = torch.zeros_like(mx)
+    dup[:, 1:] = mi[:, 1:] == mi[:, :-1]
+    fresh = ((~dup) & cand & (mi < IINF)).sum(dim=1, dtype=torch.int32)
+    mk = torch.where(dup, KEY_INF, mk)
+    mx = mx & ~dup
+    o = torch.argsort(mk, dim=1, stable=True)[:, :ef]
+    return mk.gather(1, o), mx.gather(1, o), fresh
+
+
+def beam_search_gather(adj: torch.Tensor, points: torch.Tensor,
+                       node_map: torch.Tensor | None, queries: torch.Tensor,
+                       init_d: torch.Tensor, init_i: torch.Tensor, *,
+                       ef: int, max_steps: int, stats: dict | None = None):
+    """Search every query over an adjacency array, gathering each
+    neighbor's point: the XLA ``beam_search(..., dedup="beam", expand=1)``
+    of the JAX package for an index without a table (the build's search).
+
+    Args:
+      adj: int32[cap, W] neighbor ids per node, < 0 = no edge.
+      points: int32[cap_pts, words] sketches.
+      node_map: int32[>= cap] graph-local id -> point row, or None for the
+        identity (the base layer; the upper HNSW levels map).
+      queries: int32[B, words].
+      init_d / init_i: int32[B] or [B, E] seed distances and (graph-local)
+        ids, E distinct seeds per query, any order.
+      ef: beam width.
+      max_steps: expansion bound per query.
+      stats: optional dict; accumulates ``rows`` and ``edges`` read.
+
+    Returns (keys int64[B, ef], visited int32[B], steps int32[B]); keys
+    ``d << 32 | id`` ascending, empty slots ``KEY_INF``. Per step, as the
+    XLA two-key merge does: expand the best unexpanded key; candidates are
+    the row's valid neighbors (ids >= 0) with their distances; a candidate
+    whose id is in the beam, or repeats an earlier candidate of the row, is
+    a duplicate (dropped, not counted in ``visited``); the rest merge into
+    the beam, cut back to ``ef``. ``visited`` starts at the number of
+    seeds.
+    """
+    from .mini_search import IINF, KEY_INF, seed_keys
+
+    dev = queries.device
+    init_keys = seed_keys(init_d, init_i, 0)
+    B, E = init_keys.shape
+    cap, W = adj.shape
+    low = 0xFFFFFFFF
+    bk = torch.full((B, ef), KEY_INF, dtype=torch.int64, device=dev)
+    bk[:, :E] = init_keys
+    bx = torch.zeros((B, ef), dtype=torch.bool, device=dev)
+    vis = ((init_keys & low) < IINF).sum(dim=1, dtype=torch.int32)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    rows = torch.arange(B, device=dev)
+    is_cand = torch.cat([torch.zeros(ef, dtype=torch.bool, device=dev),
+                         torch.ones(W, dtype=torch.bool, device=dev)])
+    q = queries[:, None, :]  # [B, 1, words]
+    for _ in range(max_steps):
+        frontier = (~bx) & (bk < KEY_INF) & (bk <= bk[:, ef - 1 : ef])
+        live = frontier.any(dim=1)
+        if not bool(live.any()):
+            break
+        # beam is sorted: the first unexpanded slot holds the best key
+        pos = frontier.to(torch.int8).argmax(dim=1)
+        bx[rows, pos] = bx[rows, pos] | live
+        steps += live.to(torch.int32)
+        e = (bk[rows, pos] & low).clamp(max=cap - 1)
+        nbr = adj[e]  # [B, W]
+        g = nbr.long().clamp(0, cap - 1)
+        if node_map is not None:
+            g = node_map[g].long()
+        cd = popcount_sum(points[g.clamp(0, points.shape[0] - 1)] ^ q)
+        ok = (nbr >= 0) & live[:, None]
+        _count(stats, live, ok)
+        ck = torch.where(ok, (cd.to(torch.int64) << 32) | nbr.to(torch.int64),
+                         KEY_INF)
+        bk, bx, fresh = _merge_by_id(bk, bx, ck, is_cand, ef)
+        vis += fresh
     return bk, vis, steps

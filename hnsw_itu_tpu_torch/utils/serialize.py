@@ -3,8 +3,10 @@
 
 This is how a graph crosses between the packages: an index the JAX package
 saved loads here as tensors on the caller's device, and the other way
-round. ``from_numpy`` underneath turns host arrays into an ``HNSW``.
-The ``bruteforce`` and ``nsw`` kinds come with slice 2.
+round. ``from_numpy`` underneath turns host arrays into an ``HNSW``;
+``builder_from_numpy`` turns a JAX builder's state, as host arrays, into a
+port ``HNSWBuilder`` at the same point of the build. The ``bruteforce``
+and ``nsw`` kinds are still to port (ROADMAP §1, item 6).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from ..graph import GraphArrays
 from ..models.base import IndexOptions
-from ..models.hnsw import HNSW, Level
+from ..models.hnsw import HNSW, HNSWBuilder, Level
 
 FORMAT_VERSION = 1
 
@@ -55,10 +57,44 @@ def from_numpy(points, adj, deg, levels, level_ns, ep, n, opts, device, *,
                 level_ns, ep, metric, opts, device=device)
 
 
+def builder_from_numpy(state: dict, opts: IndexOptions, device, *,
+                       metric: str = "hamming") -> HNSWBuilder:
+    """A port ``HNSWBuilder`` on ``device`` that continues a build from a
+    builder's state given as host arrays:
+
+      points     uint32 (or int32) [size, words]
+      adj, deg   int32[size, W], int32[size]: the base layer
+      spill      int32[size + 1, X]: the spill buffer (its last row, the
+                 scatter junk row, is not carried)
+      levels     list of (node_ids, down, adj, deg) int32 arrays, at the
+                 build capacity of each level
+      level_ns, ep, n
+      rng_state  ``np.random.RandomState.get_state()`` of the level RNG
+
+    ``opts`` are the builder's options (``size`` = the current capacity).
+    """
+    def own(a):  # the builder mutates in place: never share the caller's
+        return _t(np.array(a), device)
+
+    b = HNSWBuilder(opts, metric, device=device)
+    b.points = own(state["points"])
+    b.base = GraphArrays(own(state["adj"]), own(state["deg"]))
+    b.spill = own(state["spill"])
+    b.spill[-1] = -1
+    b.levels = [Level(own(a), own(d), GraphArrays(own(la), own(ld)))
+                for a, d, la, ld in state["levels"]]
+    b.level_ns = [int(x) for x in state["level_ns"]]
+    b.ep = None if state["ep"] is None else int(state["ep"])
+    b.n = int(state["n"])
+    b._rng.set_state(state["rng_state"])
+    return b
+
+
 def save_index(path, index: HNSW, attrs: ResultAttrs | None = None) -> None:
     if not isinstance(index, HNSW):
         raise NotImplementedError(
-            f"saving {type(index).__name__} is not ported yet (slice 2)")
+            f"saving {type(index).__name__} is not ported yet "
+            "(ROADMAP §1, item 6)")
     attrs = attrs or ResultAttrs()
     meta = {
         "version": FORMAT_VERSION,
@@ -100,7 +136,7 @@ def load_index(path, device):
         if meta["kind"] != "hnsw":
             raise NotImplementedError(
                 f"loading a {meta['kind']!r} index is not ported yet "
-                "(slice 2)")
+                "(ROADMAP §1, item 6)")
         levels = [(z[f"l{l}_node_ids"], z[f"l{l}_down"], z[f"l{l}_adj"],
                    z[f"l{l}_deg"]) for l in range(len(meta["level_ns"]))]
         idx = from_numpy(z["points"], z["adj"], z["deg"], levels,

@@ -155,10 +155,10 @@ def test_deferred_paths_raise(port_index, data):
     idx.query_entry_sample = SAMPLE
     with pytest.raises(NotImplementedError, match="ef > 128"):
         idx.knns(data[1][:4], K, 129)
-    b = HNSWBuilder(IndexOptions(**{**OPTS, "host_warmup": N // 2}),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        b.extend_batched(data[0])
+    with pytest.raises(NotImplementedError, match="item 16"):
+        HNSWBuilder(IndexOptions(**{**OPTS, "reorder": True}), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 4"):
+        HNSWBuilder(IndexOptions(**{**OPTS, "expand": 2}), device="cpu")
 
 
 def test_unfusable_index_refuses_queries(data):

@@ -1,11 +1,15 @@
 """The port imports without JAX: every module of ``hnsw_itu_tpu_torch``
 loads in a process where ``import jax`` fails, and none of them pulls in
-``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel. The mini-table
-module, which ports code of a JAX module, is also checked alone."""
+``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel. The modules
+that port code of a JAX module (the mini-table search, the build's
+kernels, select-neighbors, the graph mutations and the build steps) are
+also checked alone."""
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,21 +37,32 @@ def test_port_imports_without_jax():
 
 
 _ALONE = r"""
-import sys
+import importlib, sys
 sys.modules["jax"] = None
-import hnsw_itu_tpu_torch.ops.mini_search
+importlib.import_module(sys.argv[1])
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "hnsw_itu_tpu", "triton"))
 assert not bad, bad
 """
 
 
-def test_mini_search_imports_alone_without_jax():
-    r = subprocess.run([sys.executable, "-c", _ALONE], cwd=REPO,
+def _imports_alone(module: str) -> None:
+    r = subprocess.run([sys.executable, "-c", _ALONE,
+                        f"hnsw_itu_tpu_torch.{module}"], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    path = os.path.join(REPO, "hnsw_itu_tpu_torch", "ops", "mini_search.py")
+    path = os.path.join(REPO, "hnsw_itu_tpu_torch", *module.split(".")) + ".py"
     with open(path) as f:
         heads = [ln.split() for ln in f if ln.startswith(("import ", "from "))]
     assert all(h[1].split(".")[0] not in ("jax", "hnsw_itu_tpu")
                for h in heads), heads
+
+
+def test_mini_search_imports_alone_without_jax():
+    _imports_alone("ops.mini_search")
+
+
+@pytest.mark.parametrize("module", ["ops.dma_search", "ops.hamming",
+                                    "ops.select", "graph", "models._build"])
+def test_build_modules_import_alone_without_jax(module):
+    _imports_alone(module)

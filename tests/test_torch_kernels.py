@@ -1,9 +1,10 @@
-"""The CUDA beam-search kernels against their plain PyTorch versions on
-the card, bit-exact (tolerance 0): the fused kernel (keys, visited, steps)
-for the seven (W, ef) pairs of the JAX kernel's contract and the
-clamped-key case; the mini kernel (d, ids, visited, steps) at beam
-capacity 64 and 128, with several seeds, with tie_bits, and on a table
-past 2^21 rows.
+"""The CUDA kernels against their plain PyTorch versions on the card,
+bit-exact (tolerance 0): the fused kernel (keys, visited, steps) for the
+seven (W, ef) pairs of the JAX kernel's contract and the clamped-key case;
+the mini kernel (d, ids, visited, steps) at beam capacity 64 and 128, with
+several seeds, with tie_bits, and on a table past 2^21 rows; the gather
+beam search (keys, visited, steps) across W, ef, seeds, a node map and
+repeated ids; the dense Hamming block on odd and batched shapes.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest -p no:cacheprovider
@@ -13,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from hnsw_itu_tpu_torch.ops.dma_search import (dma_beam_search,
+                                               dma_beam_search_plain)
 from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
                                                  key_clamp,
                                                  materialize_fused)
+from hnsw_itu_tpu_torch.ops.hamming import hamming_block, hamming_block_plain
 from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
 from hnsw_itu_tpu_torch.ops.mini_search import (materialize_mini,
                                                 mini_beam_search,
@@ -197,3 +201,96 @@ def test_mini_kernel_past_packed_key_range(cuda_device, tie):
                                 max_steps=128, tie_bits=tie)
     found = i[i < 0x7FFFFFFF]
     assert found.numel() > 0 and bool((found >= base).all())
+
+
+def gather_inputs(rng, cap, w, E, *, mapped, repeats, B=32, words=32):
+    """(adj, points, node_map, queries, seed distances, seed ids) of a
+    random graph, as numpy arrays. ``mapped``: the graph's
+    ``cap`` local ids map into a point array twice as large through a
+    random injective node map (an upper HNSW level); ``repeats``: every row
+    lists its first half twice."""
+    pts, adj = random_graph(rng, cap, w, words)
+    if repeats:
+        adj[:, w // 2 :] = adj[:, : w // 2]
+    node_map = None
+    if mapped:
+        node_map = rng.permutation(2 * cap)[:cap].astype(np.int32)
+        big = rng.integers(0, 2**32, size=(2 * cap, words), dtype=np.uint32)
+        big[node_map] = pts
+        pts = big
+    qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+    seeds = np.stack([rng.choice(cap, size=E, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    rows = seeds if node_map is None else node_map[seeds]
+    d0 = np.unpackbits((pts[rows] ^ qs[:, None, :]).view(np.uint8),
+                       axis=-1).sum(-1).astype(np.int32)
+    if E == 1:
+        seeds, d0 = seeds[:, 0], d0[:, 0]
+    return adj, pts, node_map, qs, d0, seeds
+
+
+def _gather_vs_plain(case, dev, *, ef, max_steps):
+    adj, pts, node_map, qs, d0, seeds = case
+    t = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+         for a in (adj, pts, qs, d0, seeds)]
+    nm = None if node_map is None else torch.from_numpy(node_map).to(dev)
+    args = (t[0], t[1], nm, t[2], t[3], t[4])
+    launches = dma_beam_search.kernel_launches
+    got = dma_beam_search(*args, ef=ef, max_steps=max_steps)
+    torch.cuda.synchronize()
+    assert dma_beam_search.kernel_launches == launches + 1
+    want = dma_beam_search_plain(*args, ef=ef, max_steps=max_steps)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [32, 64])
+@pytest.mark.parametrize("ef", [1, 24, 48, 96, 128])
+def test_gather_kernel_matches_plain(cuda_device, w, ef):
+    """Beam capacity 64 (ef <= 64) and 128, one seed, identity map."""
+    rng = np.random.default_rng(w * 1000 + ef)
+    case = gather_inputs(rng, 256, w, 1, mapped=False, repeats=False)
+    _gather_vs_plain(case, cuda_device, ef=ef, max_steps=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,ef,E,mapped,repeats",
+                         [(32, 24, 4, False, False), (64, 96, 4, True, False),
+                          (64, 48, 1, True, True), (32, 128, 4, True, True),
+                          (64, 1, 1, True, False), (64, 96, 1, False, True)])
+def test_gather_kernel_seeds_map_repeats(cuda_device, w, ef, E, mapped,
+                                         repeats):
+    """Several seeds, a non-identity node map (points fetched through it)
+    and rows that repeat ids (later copies are duplicates)."""
+    rng = np.random.default_rng(w + ef + 10 * E + 100 * mapped + repeats)
+    case = gather_inputs(rng, 256, w, E, mapped=mapped, repeats=repeats)
+    _gather_vs_plain(case, cuda_device, ef=ef, max_steps=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 32), (7, 129, 32), (96, 96, 32),
+                                   (130, 33, 5), (64, 200, 64),
+                                   (3, 72, 72, 32), (17, 96, 96, 32),
+                                   (5, 31, 65, 7)])
+def test_hamming_kernel_matches_plain(cuda_device, shape):
+    """Odd sizes on both sides (edges guarded, not padded), word counts
+    that are not a multiple of 4, and batched blocks."""
+    rng = np.random.default_rng(sum(shape))
+    words = shape[-1]
+    if len(shape) == 3:
+        m, n = shape[:2]
+        a_shape, b_shape = (m, words), (n, words)
+    else:
+        p, m, n = shape[:3]
+        a_shape, b_shape = (p, m, words), (p, n, words)
+    a = as_sketches(rng.integers(0, 2**32, size=a_shape, dtype=np.uint32),
+                    cuda_device)
+    b = as_sketches(rng.integers(0, 2**32, size=b_shape, dtype=np.uint32),
+                    cuda_device)
+    launches = hamming_block.kernel_launches
+    got = hamming_block(a, b)
+    torch.cuda.synchronize()
+    assert hamming_block.kernel_launches == launches + 1
+    torch.testing.assert_close(got, hamming_block_plain(a, b), rtol=0, atol=0)
