@@ -17,8 +17,12 @@ Run from the root of a checkout. Phases, each printed as it ends:
      mini kernel for the seven (W, ef, mini_words) cases of the JAX mini
      kernels' contract with 1, 4 and 8 seeds and tie_bits 0 and 8
      (d/ids/visited/steps equal), the gather kernel across W, ef, seeds,
-     a node map and repeated ids (keys/visited/steps equal), and the
-     Hamming block kernel on odd and batched shapes;
+     a node map and repeated ids (keys/visited/steps equal), the Hamming
+     block kernel on odd and batched shapes, and both beam kernels on
+     the edges of their id set, slots and merge (W 128 and 24, all-fresh
+     and one-id rows, ids near 2^31 - 1, colliding ids, ef 1 and 128 with
+     ef seeds, tie_bits 31) and with seeds that repeat an id, the cases of
+     hnsw_itu_tpu_torch/testing.py;
   3. data and build: make_dataset(0, n, nq), the HNSW built on the host by
      the native engine (efc=96, m=24, M=64), tensors on the card;
   4. oracle: exact k=10 ground truth on the card, its distances equal to
@@ -39,6 +43,8 @@ Run from the root of a checkout. Phases, each printed as it ends:
      version never called;
   8. mini kernel against the plain version at the slice shapes: every
      query at ef=32 and ef=96, and with 4 seeds and tie_bits; both timed,
+     its resident warps, both byte counts of its bound (whole rows, and
+     ids first, the read it does), the ef sweep (32 to 128 at 32 steps),
      and the exact rerank timed apart;
   9. the device build, with the mini index freed: make_dataset(0,
      build_n, nq) and HNSWBuilder.extend_batched at the JAX bench's options
@@ -50,9 +56,10 @@ Run from the root of a checkout. Phases, each printed as it ends:
      block kernels launched with their plain versions never called;
  10. the build kernels against their plain versions at the build's
      shapes: one chunk of 4096 searches at ef=96 over the finished base
-     layer (keys/visited/steps equal), then the [4096, 96, 96] select
-     blocks of those beams; both timed, with the pairwise_mxu route beside
-     the block kernel, also at the sampled entry's shape;
+     layer (keys/visited/steps equal; its resident warps, the ef sweep),
+     then the [4096, 96, 96] select blocks of those beams; both timed,
+     with the pairwise_mxu route beside the block kernel, also at the
+     sampled entry's shape;
  11. the device-built index served on the fused path: oracle, fused
      table, knns at k=10, ef=32, max_steps auto; best of 3,
      recall@10 >= 0.93.
@@ -108,6 +115,10 @@ GATHER_CASES = [(32, 24, 1, False, False), (64, 48, 1, False, False),
                 (32, 128, 4, True, True), (64, 96, 1, False, True)]
 HAM_SHAPES = [(7, 129, 32), (96, 96, 32), (130, 33, 5), (3, 72, 72, 32),
               (17, 96, 96, 32), (5, 31, 65, 7)]
+# the ef sweep of the redesigned kernels, at a fixed expansion bound: a
+# flat time says read latency bounds them, a rising one that their
+# per-step loops still cost
+SWEEP_EFS, SWEEP_STEPS = (32, 64, 96, 128), 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 # __popc: 16 results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
@@ -168,17 +179,6 @@ def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def random_graph(rng, cap, w, words):
-    import numpy as np
-
-    pts = rng.integers(0, 2**32, size=(cap, words), dtype=np.uint32)
-    adj = np.full((cap, w), -1, np.int32)
-    for i in range(cap):
-        deg = rng.integers(w // 2, w + 1)
-        adj[i, :deg] = rng.choice(cap, size=deg, replace=False)
-    return pts, adj
-
-
 def phase_card():
     import torch
 
@@ -206,6 +206,12 @@ def phase_card():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[1]   ptxas: {line.strip()}")
+    for name, shapes in (("dma_beam_search", ((1, 24), (96, 24), (96, 64))),
+                         ("mini_beam_search", ((32, 64), (96, 64)))):
+        log(f"[1] {name}: resident warps per SM (occupancy calculator) at "
+            + ", ".join(f"ef={ef} W={w}: "
+                        f"{_kernels.resident_warps(name, ef, w)}"
+                        for ef, w in shapes))
     return smi
 
 
@@ -218,6 +224,7 @@ def phase_small_graphs(dev) -> int:
                                                      materialize_fused)
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
     from hnsw_itu_tpu_torch.ops.search import beam_search_packed
+    from hnsw_itu_tpu_torch.testing import random_graph
 
     worst = 0
     cases = [(w, ef, 8, False) for w, ef in PAIRS] + [(16, 24, 25, True)]
@@ -259,7 +266,7 @@ def phase_build(n, nq, dev, *, cap=None, tag="3"):
 
     t0 = time.perf_counter()
     pts, qs = make_dataset(0, n, nq)
-    log(f"[{tag}] make_dataset(0, {n}, {nq}): "
+    log(f"[9] make_dataset(0, {n}, {nq}): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b = HNSWBuilder(IndexOptions(ef_construction=96, connections=24,
@@ -267,7 +274,7 @@ def phase_build(n, nq, dev, *, cap=None, tag="3"):
                                  batch_size=256, host_warmup=n), device=dev)
     b.extend_batched(pts)
     index = b.build()
-    log(f"[{tag}] host build (native engine) of {n} points into "
+    log(f"[9] host build (native engine) of {n} points into "
         f"{cap or n} rows + upload: {time.perf_counter() - t0:.1f} s, "
         f"levels {index.level_ns}, ep {index.ep}")
     return pts, qs, index
@@ -286,12 +293,12 @@ def phase_oracle(pts, qs, dev, tag="4"):
     gt = bf.build().knns(qs, K)
     torch.cuda.synchronize()
     gt_d, gt_i = gt.dists.cpu().numpy(), gt.ids.cpu().numpy()
-    log(f"[{tag}] oracle on the card: {time.perf_counter() - t0:.2f} s "
+    log(f"[9] oracle on the card: {time.perf_counter() - t0:.2f} s "
         f"for {len(qs)} x {len(pts)}")
     d_host, _ = native.host_bruteforce(pts, "hamming", qs[:256], K)
     if not np.array_equal(gt_d[:256], d_host):
         raise AssertionError("oracle distances != native host scan")
-    log(f"[{tag}] oracle distances equal the native host scan on 256 "
+    log(f"[9] oracle distances equal the native host scan on 256 "
         "queries")
     return gt_i
 
@@ -440,6 +447,7 @@ def phase_small_mini(dev) -> int:
 
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
     from hnsw_itu_tpu_torch.ops.mini_search import materialize_mini
+    from hnsw_itu_tpu_torch.testing import random_graph
 
     worst = 0
     for w, ef, mw in MINI_CASES:
@@ -492,6 +500,7 @@ def phase_small_build_kernels(dev):
     from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
                                                 hamming_block_plain)
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+    from hnsw_itu_tpu_torch.testing import random_graph
 
     worst6 = 0
     for w, ef, E, mapped, repeats in GATHER_CASES:
@@ -542,6 +551,63 @@ def phase_small_build_kernels(dev):
         if err:
             raise AssertionError(f"hamming kernel != plain at {shape}")
     return worst6, worst7
+
+
+def phase_small_edges(dev):
+    """The beam kernels' edge cases and repeated-seed cases
+    (hnsw_itu_tpu_torch/testing.py) against their plain versions through
+    the wrappers: (gather max |diff|, mini max |diff|)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+    from hnsw_itu_tpu_torch.ops.mini_search import materialize_mini
+    from hnsw_itu_tpu_torch.testing import (GATHER_EDGES, MINI_EDGES,
+                                            REPEATED_SEEDS, edge_inputs,
+                                            repeated_seed_inputs)
+
+    def gather(case, pts, adj, qs, seeds, ef):
+        p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+        s = torch.from_numpy(seeds).to(dev)
+        d0 = popcount_sum(p[s.long()] ^ q[:, None, :])
+        err, got = gather_vs_plain(torch.from_numpy(adj).to(dev), p, None, q,
+                                   d0, s, ef=ef, max_steps=256)
+        log(f"[2] gather {case}: kernel vs plain max |diff| {err} "
+            f"(visited/q {got[1].float().mean():.1f}, steps/q "
+            f"{got[2].float().mean():.1f})")
+        if err:
+            raise AssertionError(f"gather kernel != plain at {case}")
+        return err
+
+    def mini(case, pts, adj, qs, seeds, w, ef, mw, tie):
+        p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+        table = materialize_mini(p, torch.from_numpy(adj).to(dev),
+                                 mini_words=mw)[:, :w].contiguous()
+        s = torch.from_numpy(seeds).to(dev)
+        d0 = popcount_sum(p[s.long(), :mw] ^ q[:, None, :mw])
+        err, got = mini_vs_plain(table, q, d0, s, ef=ef, max_steps=256,
+                                 tie_bits=tie)
+        log(f"[2] mini {case} mw={mw} tie_bits={tie}: kernel vs plain max "
+            f"|diff| {err} (visited/q {got[2].float().mean():.1f}, steps/q "
+            f"{got[3].float().mean():.1f})")
+        if err:
+            raise AssertionError(f"mini kernel != plain at {case} tie={tie}")
+        return err
+
+    worst6 = worst_mini = 0
+    for kind, cap, w, ef, E in GATHER_EDGES:
+        worst6 = max(worst6, gather(
+            f"edge {kind} cap={cap} W={w} ef={ef} seeds={E}",
+            *edge_inputs(kind, cap, w, E), ef))
+    for kind, cap, w, ef, E, mw, tie in MINI_EDGES:
+        worst_mini = max(worst_mini, mini(
+            f"edge {kind} cap={cap} W={w} ef={ef} seeds={E}",
+            *edge_inputs(kind, cap, w, E, salt=mw), w, ef, mw, tie))
+    for w, ef, E, distinct, tie in REPEATED_SEEDS:
+        case = f"W={w} ef={ef}, {E} seeds over {distinct} ids"
+        inputs = repeated_seed_inputs(w, E, distinct)
+        worst6 = max(worst6, gather(case, *inputs, ef))
+        worst_mini = max(worst_mini, mini(case, *inputs, w, ef, 7, tie))
+    return worst6, worst_mini
 
 
 def phase_mini_query(index, qs, gt_i, dev):
@@ -614,6 +680,7 @@ def phase_mini_query(index, qs, gt_i, dev):
 def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
     import torch
 
+    from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.ops.mini_search import (mini_beam_search,
                                                     mini_beam_search_plain,
@@ -621,15 +688,25 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
 
     table, W, mw = index.mini, index.mini_W, index.mini_words
     B = len(qs)
-    total, top = device_breakdown(lambda: index.knns(as_sketches(qs, dev), K,
-                                                     EF))
+    q_all = as_sketches(qs, dev)
+    total, top = device_breakdown(lambda: index.knns(q_all, K, EF))
     log(f"[8] knns ef={EF} on the device (torch.profiler, 3 calls): "
         f"{total:.3f} ms per call, {100 * total / knns_ms:.0f}% of the "
         f"{knns_ms:.3f} ms host-clock call")
     for name, ms in top:
         log(f"[8]   {ms:.3f} ms  {name[:100]}")
-    qs_o, d0, eps = mini_seeds(index.points, as_sketches(qs, dev), index.n,
-                               mw, 1)
+    qs_o, d0, eps = mini_seeds(index.points, q_all, index.n, mw, 1)
+
+    def bounds(st, visited, ef):
+        """Bytes the search must move, two counts: each expansion's W ids,
+        queries and seeds in, keys and counts out, and either every valid
+        neighbor's prefix (a whole-row read) or each fresh neighbor's
+        prefix only (the ids-first read the kernel does: its bound)."""
+        io = B * mw * 4 + B * 8 + B * ef * 8 + B * 8
+        fresh = int(visited.long().sum()) - B
+        return (st["rows"] * W * 4 + st["edges"] * mw * 4 + io,
+                st["rows"] * W * 4 + fresh * mw * 4 + io)
+
     out, worst = {}, 0
     for ef in MINI_EFS:
         steps = index._steps_cap(ef)
@@ -646,25 +723,47 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
                        10)
         p_ms = cuda_ms(lambda: mini_beam_search_plain(table, qs_o, d0, eps,
                                                       **kw), 2)
-        # bytes the search must move: each expansion's W ids and each
-        # valid neighbor's prefix, queries and seeds in, keys and counts out
-        nbytes = (st["rows"] * W * 4 + st["edges"] * mw * 4 + B * mw * 4
-                  + B * 8 + B * ef * 8 + B * 8)
-        b_ms = bound_ms(nbytes)
-        out[ef] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
-        log(f"[8] on {smi}, ef={ef}: mini kernel {k_ms:.3f} ms, plain "
-            f"version {p_ms:.3f} ms; the search reads {st['rows']} rows "
-            f"({st['rows'] / B:.2f}/q), {st['edges']} valid edges "
-            f"({st['edges'] / st['rows']:.1f}/row): {nbytes / 1e9:.3f} GB, "
-            f"bound {b_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
+        whole, by_ids = bounds(st, got[2], ef)
+        b_ms = bound_ms(by_ids)
+        warps = _kernels.resident_warps("mini_beam_search", ef, W)
+        out[ef] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                   "bound_whole_rows_ms": bound_ms(whole),
+                   "bound_ids_first_ms": bound_ms(by_ids),
+                   "resident_warps": warps}
+        log(f"[8] on {smi}, ef={ef}: mini kernel {k_ms:.3f} ms ({warps} "
+            f"resident warps/SM), plain version {p_ms:.3f} ms; the search "
+            f"reads {st['rows']} rows ({st['rows'] / B:.2f}/q), "
+            f"{st['edges']} valid edges ({st['edges'] / st['rows']:.1f}/row),"
+            f" {int(got[2].long().sum()) - B} fresh: whole-row count "
+            f"{whole / 1e9:.3f} GB = {bound_ms(whole):.3f} ms, ids-first "
+            f"count {by_ids / 1e9:.3f} GB = {bound_ms(by_ids):.3f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s; bound {b_ms:.3f} ms")
         if ef == EF:
             ids = got[1]
             r_ms = cuda_ms(lambda: rerank_exact(index.points, qs_o, ids,
                                                 k=K), 10)
             log(f"[8] exact rerank of the ef={ef} beam (_query_step_mini's "
                 f"rerank_exact): {r_ms:.3f} ms")
-    qs4, d4, eps4 = mini_seeds(index.points, as_sketches(qs, dev), index.n,
-                               mw, 4)
+    sweep = []
+    for ef in SWEEP_EFS:
+        st = {}
+        err, got = mini_vs_plain(table, qs_o, d0, eps, ef=ef,
+                                 max_steps=SWEEP_STEPS, stats=st)
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"mini kernel != plain in the sweep, ef={ef}")
+        ms = cuda_ms(lambda ef=ef: mini_beam_search(
+            table, qs_o, d0, eps, ef=ef, mini_words=mw,
+            max_steps=SWEEP_STEPS), 10)
+        b = bound_ms(bounds(st, got[2], ef)[1])
+        sweep.append({"ef": ef, "ms": ms, "bound_ms": b,
+                      "steps_q": float(got[3].float().mean()),
+                      "visited_q": float(got[2].float().mean())})
+        log(f"[8] sweep ef={ef} max_steps={SWEEP_STEPS}: mini kernel "
+            f"{ms:.3f} ms, steps/q {sweep[-1]['steps_q']:.2f}, visited/q "
+            f"{sweep[-1]['visited_q']:.1f}, bound {b:.3f} ms "
+            f"(kernel vs plain max |diff| {err})")
+    qs4, d4, eps4 = mini_seeds(index.points, q_all, index.n, mw, 4)
     index.query_tie = "bitrev"
     tie_bits = index._tie_bits()
     index.query_tie = "auto"
@@ -675,7 +774,7 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
         f"{tie_bits}): kernel vs plain max |diff| {err}")
     if err:
         raise AssertionError("mini kernel != plain with 4 seeds and ties")
-    return worst, out
+    return worst, out, sweep
 
 
 def phase_device_build(n, nq, dev):
@@ -721,7 +820,8 @@ def phase_device_build(n, nq, dev):
            "ham_plain": hamming_block.plain_calls}
     host_s = warm_done[0] - t0
     dev_s = t1 - warm_done[0]
-    rec.update(host_s=host_s, device_s=dev_s, finish_s=t2 - t1)
+    rec.update(host_s=host_s, device_s=dev_s, finish_s=t2 - t1,
+               level_ns=index.level_ns, edge_drops=b.total_edge_drops())
     log(f"[9] build of {n} points, {opts}: host warmup (native engine, "
         f"{opts.host_warmup} points, + upload) {host_s:.1f} s, device "
         f"chunks {dev_s:.1f} s, build() (spill drain, level trim) "
@@ -765,10 +865,12 @@ def mxu_block(a, b):
 def phase_build_kernels(index, qs, dev, smi):
     """The two build kernels against their plain versions at the build's
     shapes, on the finished index: one chunk of searches (ef = efc, seeded
-    by the sampled entry as the build seeds them), then the select blocks
-    of those beams; both timed with their bounds and yardsticks."""
+    by the sampled entry as the build seeds them) and the ef sweep; then
+    the select blocks of those beams; both timed with their bounds and
+    yardsticks."""
     import torch
 
+    from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
     from hnsw_itu_tpu_torch.ops.entry import sampled_entry
     from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
@@ -809,10 +911,30 @@ def phase_build_kernels(index, qs, dev, smi):
     nbytes6 = (rows * W * 4 + fresh * words * 4 + B * words * 4 + B * 8
                + B * efc * 8 + B * 8)
     b6 = bound_ms(nbytes6)
-    log(f"[10] on {smi}: gather kernel {k6:.3f} ms, plain version "
-        f"{p6:.3f} ms for {B} searches; {rows} expansions, {fresh} fresh "
-        f"neighbors: {nbytes6 / 1e9:.4f} GB, bound {b6:.4f} ms at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s")
+    warps = _kernels.resident_warps("dma_beam_search", efc, W)
+    log(f"[10] on {smi}: gather kernel {k6:.3f} ms ({warps} resident "
+        f"warps/SM), plain version {p6:.3f} ms for {B} searches; {rows} "
+        f"expansions, {fresh} fresh neighbors: {nbytes6 / 1e9:.4f} GB, bound "
+        f"{b6:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s")
+    dma = {"max_abs_err": err6, "ms": k6, "plain_ms": p6, "bound_ms": b6,
+           "searches": B, "steps_q": rows / B, "resident_warps": warps}
+    dma["sweep"] = []
+    for ef in SWEEP_EFS:
+        e6, (_, v, st) = gather_vs_plain(adj, points, None, q, d0, eps, ef=ef,
+                                         max_steps=SWEEP_STEPS)
+        if e6:
+            raise AssertionError(f"gather kernel != plain in the sweep, "
+                                 f"ef={ef}")
+        ms = cuda_ms(lambda ef=ef: dma_beam_search(
+            adj, points, None, q, d0, eps, ef=ef, max_steps=SWEEP_STEPS), 10)
+        r, f_ = int(st.long().sum()), int(v.long().sum()) - B
+        b = bound_ms(r * W * 4 + f_ * words * 4 + B * words * 4 + B * 8
+                     + B * ef * 8 + B * 8)
+        dma["sweep"].append({"ef": ef, "ms": ms, "bound_ms": b,
+                             "steps_q": r / B, "visited_q": (f_ + B) / B})
+        log(f"[10] sweep ef={ef} max_steps={SWEEP_STEPS}: gather kernel "
+            f"{ms:.3f} ms, steps/q {r / B:.2f}, visited/q {(f_ + B) / B:.1f}, "
+            f"bound {b:.4f} ms (kernel vs plain max |diff| {e6})")
 
     # the select blocks of those beams: [B, efc, efc]
     bi = (keys & 0xFFFFFFFF).to(torch.int32)
@@ -852,8 +974,7 @@ def phase_build_kernels(index, qs, dev, smi):
         f"block {ke:.3f} ms, pairwise_mxu {le:.3f} ms (the entry keeps "
         "pairwise_mxu)")
     return {
-        "dma": {"max_abs_err": err6, "ms": k6, "plain_ms": p6,
-                "bound_ms": b6, "searches": B, "steps_q": rows / B},
+        "dma": dma,
         "ham": {"max_abs_err": err7, "ms": k7, "plain_ms": p7,
                 "bound_ms": b7, "library_ms": l7, "bound_by": by7,
                 "entry_ms": ke, "entry_mxu_ms": le},
@@ -930,6 +1051,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from hnsw_itu_tpu_torch import require_cuda
+    from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
     from hnsw_itu_tpu_torch.ops.mini_search import mini_beam_search
 
@@ -939,6 +1061,7 @@ def main(argv=None) -> int:
     err_small = phase_small_graphs(dev)
     err_small_mini = phase_small_mini(dev)
     err_small_dma, err_small_ham = phase_small_build_kernels(dev)
+    err_edge_dma, err_edge_mini = phase_small_edges(dev)
 
     # the fused path: build, table, queries; only its launches count
     fused_beam_search.kernel_launches = 0
@@ -975,8 +1098,8 @@ def main(argv=None) -> int:
     if mini_launches <= 0 or mini_plain != 0:
         raise AssertionError(
             f"mini path launches {mini_launches}, plain calls {mini_plain}")
-    err_mini, mini = phase_mini_slice_shapes(index, qs, dev, smi,
-                                             mini_q[EF]["knns_ms"])
+    err_mini, mini, mini_sweep = phase_mini_slice_shapes(
+        index, qs, dev, smi, mini_q[EF]["knns_ms"])
     del qs, index, gt_i
     gc.collect()
     torch.cuda.empty_cache()
@@ -1006,13 +1129,15 @@ def main(argv=None) -> int:
         "replaces": MINI_REPLACES,
         "also_replaces": MINI_COVERS,
         "launches": mini_launches,
-        "max_abs_err": max(err_small_mini, err_mini),
+        "max_abs_err": max(err_small_mini, err_edge_mini, err_mini),
         "ms": mini[EF]["ms"],
         "plain_ms": mini[EF]["plain_ms"],
         "bound_ms": mini[EF]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "ef32": mini[EF],
         "ef96": mini[MINI_EFS[1]],
+        "sweep": mini_sweep,
         "knns": {str(ef): v for ef, v in mini_q.items()},
     }, {
         "name": "dma_beam_search",
@@ -1020,15 +1145,18 @@ def main(argv=None) -> int:
         "source": DMA_SRC,
         "replaces": DMA_REPLACES,
         "launches": build["dma_launches"],
-        "max_abs_err": max(err_small_dma, bk["dma"]["max_abs_err"]),
+        "max_abs_err": max(err_small_dma, err_edge_dma,
+                           bk["dma"]["max_abs_err"]),
         "ms": bk["dma"]["ms"],
         "plain_ms": bk["dma"]["plain_ms"],
         "bound_ms": bk["dma"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
         "searches": bk["dma"]["searches"],
-        "build": {k: build[k] for k in ("host_s", "device_s", "finish_s",
-                                        "spans_ms")},
+        **{k: bk["dma"][k] for k in bk["dma"] if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "searches")},
+        "build": {k: build[k] for k in build if k not in (
+            "dma_launches", "dma_plain", "ham_launches", "ham_plain")},
         "knns_on_built_index": served,
     }, {
         "name": "hamming_block",

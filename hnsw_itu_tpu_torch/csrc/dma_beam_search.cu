@@ -17,80 +17,79 @@
 // the XLA merge, and unlike the Pallas kernel, a neighbor repeated within
 // one row is a duplicate (ROADMAP §3).
 //
-// What bounds it on an H100: latency, not bandwidth. An expansion is two
-// (three with node_map) dependent round trips to device memory: the row's
-// W ids (256 B at W = 64), then one 128 B point per fresh neighbor, each
-// anywhere in a point array far larger than the 50 MB L2. The design
-// dedups before fetching (a duplicate costs no point read), keeps each
-// lane's point loads independent (a lane owns neighbors lane, lane+32,
-// ...; 16-byte loads, the whole point's loads issued together when words
-// is a multiple of 4), and keeps the beam, candidates and query in shared
-// memory, so nothing but rows, points, seeds and the final keys touches
-// device memory. The beam, rank merge and termination are those of
-// mini_beam_search.cu.
+// Per step (the beam machinery is beam_common.cuh's):
+//  1. frontier; the row's W ids are loaded (lane owns j = lane, lane+32,
+//     ...) and are in flight while the id set is brought up to date;
+//  2. dedup of the row against the set, one slot of 32 at a time;
+//  3. the F fresh ids are packed into [0, F), and lane c fetches fresh
+//     neighbor c's point (through node_map when given; 16-byte loads when
+//     words is a multiple of 4): all of a step's point reads go out in one
+//     wave, and a duplicate costs no read;
+//  4. XOR + __popc with the query in shared memory -> keys; merge.
 //
-// Keys: int64 d << 32 | id (both fields >= 0); key_inf = DINF << 32 | IINF
-// marks an empty slot. Beam keys are unique except key_inf.
-//
-// Per step, for one query (warp-synchronous, no block barrier):
-//  1. frontier: the first beam slot that is unexpanded, < key_inf and
-//     <= beam[ef-1] (the beam is sorted, so this is the best unexpanded
-//     key); none -> the query is done;
-//  2. each lane reads neighbor ids j = lane, lane+32, ... of the expanded
-//     node;
-//  3. a neighbor that is absent (< 0), in the beam, or repeats an earlier
-//     neighbor of the row is a duplicate; the rest are fresh and count in
-//     visited;
-//  4. each fresh neighbor's point (through node_map when given): XOR +
-//     __popc with the query -> its key;
-//  5. rank merge: beam key i moves to i + #(fresh < key), fresh key c to
-//     #(beam < c) + #(fresh < c); positions >= ef fall out.
+// What bounds it on an H100. The first design (a shared-memory compare per
+// beam key and per earlier row entry for each candidate, ranks by counting
+// over all W slots) was issue-bound: ~830 compare iterations a step at
+// ef=96, W=64. Now a step is a short chain: the row read, the set
+// placements, the point reads, the broadcast merge. What is left is that
+// chain's latency, two dependent round trips to device memory (the row,
+// 256 B at W=64; the fresh points, 128 B each, anywhere in a point array
+// far larger than the 50 MB L2; three with node_map) and the instructions
+// of 32 warps sharing an SM: its time no longer grows with ef at a fixed
+// number of steps (PERF.md, the ef sweep). Neither tensor cores (no
+// products: XOR, popcount, compares) nor TMA tiles (scattered rows, not
+// tiles) apply; the bulk L2 prefetch of the next frontier's row (4 W
+// bytes) would, but was measured slower here (PERF.md) and is not issued.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "beam_common.cuh"
+
 namespace {
 
-constexpr int kMaxW = 128;
-constexpr int kSlots = kMaxW / 32;  // neighbors per lane at most
-constexpr int kMaxWords = 64;
-constexpr int kWarps = 4;           // queries per block
-constexpr unsigned kFull = 0xffffffffu;
-constexpr long long kKeyInf = (0x7FFF0000LL << 32) | 0x7FFFFFFFLL;
+using beam::kFull;
+using beam::kIInf;
+using beam::kKeyInf;
+using beam::key_id;
 
-__device__ __forceinline__ int key_id(long long k) {
-  return static_cast<int>(k & 0xffffffffLL);
-}
+constexpr int kMaxW = 128;
+constexpr int kMaxWords = 64;
+constexpr int kWarps = 4;  // queries per block
 
 // Hamming distance of the point at `p` to the query `q` (shared memory).
-// W4 > 0: words = 4 * W4, 16-byte loads, all issued before the first use;
-// W4 = 0: the run-time width, one 4-byte load per word.
-template <int W4>
+// words % 4 == 0: 16-byte loads, eight issued before the first use;
+// otherwise one 4-byte load per word.
 __device__ __forceinline__ int point_distance(const int* __restrict__ p,
                                               const int* q, int words) {
-  if constexpr (W4 > 0) {
+  int s = 0;
+  if ((words & 3) == 0) {
     const int4* p4 = reinterpret_cast<const int4*>(p);
     const int4* q4 = reinterpret_cast<const int4*>(q);
-    int4 v[W4];
+    const int n4 = words >> 2;
+    for (int c0 = 0; c0 < n4; c0 += 8) {
+      int4 v[8];
 #pragma unroll
-    for (int c = 0; c < W4; ++c) v[c] = __ldg(p4 + c);
-    int s = 0;
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < n4) v[c] = __ldg(p4 + c0 + c);
 #pragma unroll
-    for (int c = 0; c < W4; ++c) {
-      const int4 w = q4[c];
-      s += __popc(v[c].x ^ w.x) + __popc(v[c].y ^ w.y) +
-           __popc(v[c].z ^ w.z) + __popc(v[c].w ^ w.w);
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < n4) {
+          const int4 w = q4[c0 + c];
+          s += __popc(v[c].x ^ w.x) + __popc(v[c].y ^ w.y) +
+               __popc(v[c].z ^ w.z) + __popc(v[c].w ^ w.w);
+        }
     }
     return s;
-  } else {
-    int s = 0;
-    for (int t = 0; t < words; ++t) s += __popc(__ldg(p + t) ^ q[t]);
-    return s;
   }
+  for (int t = 0; t < words; ++t) s += __popc(__ldg(p + t) ^ q[t]);
+  return s;
 }
 
-template <int CAP, int W4>
-__global__ void __launch_bounds__(kWarps * 32)
+// At most 64 registers up to two slots: 32 warps per SM, so a 4096-search
+// build chunk runs in one wave on 132 SMs.
+template <int CAP, int SLOTS>
+__global__ void __launch_bounds__(kWarps * 32, SLOTS <= 2 ? 8 : 4)
 dma_beam_search_kernel(const int* __restrict__ queries, int words,
                        const long long* __restrict__ init_keys, int E,
                        const int* __restrict__ adj, int cap, int W,
@@ -100,12 +99,10 @@ dma_beam_search_kernel(const int* __restrict__ queries, int words,
                        int* __restrict__ out_visited,
                        int* __restrict__ out_steps, int B, int ef,
                        int max_steps) {
-  __shared__ long long s_bk[kWarps][CAP];    // beam keys, ascending
-  __shared__ long long s_nk[kWarps][CAP];    // merged beam keys
-  __shared__ long long s_ck[kWarps][kMaxW];  // candidate keys
-  __shared__ int s_bf[kWarps][CAP];          // expanded flags
-  __shared__ int s_nf[kWarps][CAP];          // merged flags
-  __shared__ int s_id[kWarps][kMaxW];        // the expanded row's ids
+  using Smem = beam::Beam<CAP, SLOTS>;
+  constexpr int S = Smem::kSet;
+  __shared__ Smem s_beam[kWarps];
+  __shared__ int s_cid[kWarps][Smem::kW];  // fresh ids, packed
   __shared__ __align__(16) int s_q[kWarps][kMaxWords];
 
   const int warp = threadIdx.x >> 5;
@@ -113,121 +110,92 @@ dma_beam_search_kernel(const int* __restrict__ queries, int words,
   const int b = blockIdx.x * kWarps + warp;
   if (b >= B) return;  // warp-uniform: the whole warp leaves together
 
-  long long* bk = s_bk[warp];
-  long long* nk = s_nk[warp];
-  long long* ck = s_ck[warp];
-  int* bf = s_bf[warp];
-  int* nf = s_nf[warp];
-  int* rid = s_id[warp];
+  Smem& sm = s_beam[warp];
+  int* cid = s_cid[warp];
   const int* q = s_q[warp];
 
   for (int t = lane; t < words; t += 32)
     s_q[warp][t] = queries[(size_t)b * words + t];
-  int seeds = 0;  // valid seeds: the visited count starts there
-  for (int i = lane; i < ef; i += 32) {
-    const long long k = i < E ? init_keys[(size_t)b * E + i] : kKeyInf;
-    bk[i] = k;
-    bf[i] = 0;
-    seeds += i < E && key_id(k) != 0x7FFFFFFF;
-  }
-  int visited = __reduce_add_sync(kFull, seeds);
+  int visited = beam::load_seeds(sm, init_keys + (size_t)b * E, E, ef, lane);
   __syncwarp();
 
-  int steps = 0;
+  // hint: the frontier slot the last merge found (-1: none), -2: scan
+  // tombs: erased set slots since the last rebuild (S: rebuild first)
+  const int rebuild_after = Smem::rebuild_after(ef, W);
+  int cur = 0, steps = 0, hint = -2, tombs = S;
   while (steps < max_steps) {
-    // 1. frontier
-    const long long worst = bk[ef - 1];
-    int pos = -1;
-    for (int base = 0; base < ef; base += 32) {
-      const int i = base + lane;
-      const bool open = i < ef && !bf[i] && bk[i] < kKeyInf && bk[i] <= worst;
-      const unsigned m = __ballot_sync(kFull, open);
-      if (m) {
-        pos = base + __ffs(m) - 1;
-        break;
-      }
-    }
+    const long long* bk = sm.key[cur];
+    unsigned char* bf = sm.flag[cur];
+    const int pos = hint == -2 ? beam::frontier(bk, bf, ef, lane) : hint;
     if (pos < 0) break;
     ++steps;
+    if (steps == 1 && E > 1)
+      beam::drop_repeated_seeds<CAP>(sm.key[cur], E, ef, lane);
     const int e = min(max(key_id(bk[pos]), 0), cap - 1);
-    __syncwarp();
-    if (lane == 0) bf[pos] = 1;
-
-    // 2. the row's ids
     const int* row = adj + (size_t)e * W;
-    int nid[kSlots];
+    int nid[SLOTS];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < SLOTS; ++s) {
       const int j = s * 32 + lane;
       nid[s] = j < W ? __ldg(row + j) : -1;
-      if (j < W) rid[j] = nid[s];
     }
     __syncwarp();
+    if (lane == 0) bf[pos] = 1;
+    if (tombs > rebuild_after) {
+      beam::set_rebuild<S, CAP>(sm.set, bk, ef, lane);
+      tombs = 0;
+    }
+    bool iinf_seen = beam::beam_has_iinf<CAP>(bk, ef, lane);
 
-    // 3. dedup against the beam and against earlier ids of the row
-    int fresh_total = 0;
+    int F = 0, counted = 0;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < SLOTS; ++s) {
       const int j = s * 32 + lane;
-      bool fresh = j < W && nid[s] >= 0;
-      for (int i = 0; fresh && i < ef; ++i) fresh = key_id(bk[i]) != nid[s];
-      for (int i = 0; fresh && i < j; ++i) fresh = rid[i] != nid[s];
-      if (!fresh) nid[s] = -1;
-      fresh_total += __popc(__ballot_sync(kFull, fresh));
+      const bool valid = j < W && nid[s] >= 0;
+      const int id = j < W ? (valid ? nid[s] : kIInf) : -1;
+      int slot;
+      const bool fresh =
+          beam::dedup_slot<S>(sm.set, id, valid, iinf_seen, lane, slot);
+      const unsigned m = __ballot_sync(kFull, fresh);
+      if (fresh) {
+        const int at = F + __popc(m & beam::lanemask_lt());
+        cid[at] = nid[s];
+        sm.slot[at] = slot;
+      }
+      F += __popc(m);
+      counted += __popc(__ballot_sync(kFull, fresh && nid[s] != kIInf));
     }
     __syncwarp();
-    if (fresh_total == 0) continue;
-    visited += fresh_total;
+    if (F == 0) {
+      hint = -2;
+      continue;
+    }
+    visited += counted;
 
-    // 4. one point per fresh neighbor -> candidate keys
-    long long key[kSlots];
+    long long key[SLOTS];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int j = s * 32 + lane;
-      key[s] = kKeyInf;
-      if (nid[s] >= 0) {
-        const int g = min(nid[s], cap - 1);
+    for (int t = 0; t < SLOTS; ++t) {
+      const int c = t * 32 + lane;
+      key[t] = kKeyInf;
+      if (c < F) {
+        const int id = cid[c];
+        const int g = min(id, cap - 1);
         int r = node_map ? __ldg(node_map + g) : g;
         r = min(max(r, 0), n_pts - 1);
-        const int d = point_distance<W4>(points + (size_t)r * words, q, words);
-        key[s] = (static_cast<long long>(d) << 32) | nid[s];
-      }
-      if (j < W) ck[j] = key[s];
-    }
-    __syncwarp();
-
-    // 5. rank merge into nk/nf, then copy back
-    for (int i = lane; i < ef; i += 32) {
-      const long long k = bk[i];
-      int p = i;
-      for (int j = 0; j < W; ++j) p += ck[j] < k;
-      if (p < ef) {
-        nk[p] = k;
-        nf[p] = bf[i];
+        const int d = point_distance(points + (size_t)r * words, q, words);
+        key[t] = (static_cast<long long>(d) << 32) | id;
       }
     }
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const long long c = key[s];
-      if (c < kKeyInf) {
-        int p = 0;
-        for (int i = 0; i < ef; ++i) p += bk[i] < c;
-        for (int j = 0; j < W; ++j) p += ck[j] < c;
-        if (p < ef) {
-          nk[p] = c;
-          nf[p] = 0;
-        }
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < ef; i += 32) {
-      bk[i] = nk[i];
-      bf[i] = nf[i];
-    }
-    __syncwarp();
+    int erased;
+    hint = beam::merge<S, CAP, SLOTS>(bk, bf, sm.key[cur ^ 1],
+                                      sm.flag[cur ^ 1], sm.fresh, key, F, ef,
+                                      sm.set, sm.slot, lane, erased);
+    tombs += erased;
+    cur ^= 1;
   }
 
-  for (int i = lane; i < ef; i += 32) out_keys[(size_t)b * ef + i] = bk[i];
+  for (int i = lane; i < ef; i += 32)
+    out_keys[(size_t)b * ef + i] = sm.key[cur][i];
   if (lane == 0) {
     out_visited[b] = visited;
     out_steps[b] = steps;
@@ -250,25 +218,40 @@ struct Args {
   int B, ef, max_steps;
 };
 
-template <int CAP, int W4>
-void launch(const Args& a, cudaStream_t stream) {
+// Launches the instance (CAP, SLOTS) on `stream`, or with stream == null
+// and `warps` set, only reports its resident warps per SM.
+template <int CAP, int SLOTS>
+void run(const Args& a, cudaStream_t stream, int* warps) {
+  const auto kernel = dma_beam_search_kernel<CAP, SLOTS>;
+  if (warps) {
+    int blocks = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                  kWarps * 32, 0);
+    *warps = blocks * kWarps;
+    return;
+  }
   const dim3 grid((a.B + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
-  dma_beam_search_kernel<CAP, W4><<<grid, block, 0, stream>>>(
+  kernel<<<grid, kWarps * 32, 0, stream>>>(
       a.queries, a.words, a.init_keys, a.E, a.adj, a.cap, a.W, a.points,
       a.n_pts, a.node_map, a.out_keys, a.out_visited, a.out_steps, a.B, a.ef,
       a.max_steps);
 }
 
 template <int CAP>
-void launch_words(const Args& a, cudaStream_t stream) {
-  switch (a.words) {  // 16-byte loads where a point is a whole int4 count
-    case 8: launch<CAP, 2>(a, stream); break;
-    case 16: launch<CAP, 4>(a, stream); break;
-    case 32: launch<CAP, 8>(a, stream); break;
-    case 64: launch<CAP, 16>(a, stream); break;
-    default: launch<CAP, 0>(a, stream); break;
+void run_slots(const Args& a, cudaStream_t stream, int* warps) {
+  switch ((a.W + 31) / 32) {  // row slots of 32: the build's W are 24, 64
+    case 1: run<CAP, 1>(a, stream, warps); break;
+    case 2: run<CAP, 2>(a, stream, warps); break;
+    case 3: run<CAP, 3>(a, stream, warps); break;
+    default: run<CAP, 4>(a, stream, warps); break;
   }
+}
+
+void dispatch(const Args& a, cudaStream_t stream, int* warps) {
+  if (a.ef <= 64)
+    run_slots<64>(a, stream, warps);
+  else
+    run_slots<128>(a, stream, warps);
 }
 
 }  // namespace
@@ -303,12 +286,18 @@ int hnsw_dma_beam_search(const void* queries, int words, const void* init_keys,
                static_cast<int*>(out_visited),
                static_cast<int*>(out_steps),
                B, ef, max_steps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ef <= 64)
-    launch_words<64>(a, s);
-  else
-    launch_words<128>(a, s);
+  dispatch(a, static_cast<cudaStream_t>(stream), nullptr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident warps per SM of the instance that serves (ef, W).
+int hnsw_dma_beam_search_warps(int ef, int W) {
+  Args a{};
+  a.ef = ef;
+  a.W = W;
+  int warps = 0;
+  dispatch(a, nullptr, &warps);
+  return warps;
 }
 
 const char* hnsw_cuda_error_string(int code) {

@@ -6,61 +6,59 @@
 // (beam half 64), ::_make_mini_kernel_s128 (beam half 128) and
 // ::_make_mini_kernel (any half): the three compute one function and differ
 // only in TPU lane layout. Here one kernel, templated on the beam capacity
-// (64 for ef <= 64, 128 above), covers all three. Contract: bit-exact with
-// the XLA two-key beam search (hnsw_itu_tpu/ops/search.py::beam_search,
-// expand=1, dedup="beam") on the truncated sketches, and with its plain
-// PyTorch port, hnsw_itu_tpu_torch/ops/search.py::beam_search_two_plane:
-// the same keys, visited counts and step counts for every query. Unlike
-// the Pallas kernels, and like the XLA merge, a neighbor repeated within
-// one row is a duplicate (ROADMAP §3).
-//
-// What bounds it on an H100: latency, not bandwidth. Each expansion reads
-// one node's mini row (W ids and, for each valid neighbor, mini_words
-// sketch words; 8 KB at W=64, mini_words=31 when the row is full) from
-// anywhere in a table of many GB (18 GB at 2.2M points), far past the
-// 50 MB L2, and the next expansion depends on it; the arithmetic per byte
-// is one XOR and one popcount. The design keeps each lane's loads
-// independent (a lane owns neighbors lane, lane+32, ...; 16-byte loads
-// when 1 + mini_words is a multiple of 4), reads a neighbor's prefix only
-// when its id (the first 4 bytes of the same 16-byte load) is valid, and
-// keeps the beam, the candidates and the query prefix in shared memory, so
-// nothing but row reads, seeds and the final keys touches device memory.
+// (64 for ef <= 64, 128 above) and on the row's slots of 32, covers all
+// three. Contract: bit-exact with the XLA two-key beam search
+// (hnsw_itu_tpu/ops/search.py::beam_search, expand=1, dedup="beam") on the
+// truncated sketches, and with its plain PyTorch port,
+// hnsw_itu_tpu_torch/ops/search.py::beam_search_two_plane: the same keys,
+// visited counts and step counts for every query. Unlike the Pallas
+// kernels, and like the XLA merge, a neighbor repeated within one row is a
+// duplicate (ROADMAP §3).
 //
 // Layout (hnsw_itu_tpu_torch/ops/mini_search.py):
 //   table int32[cap, W, MV], MV = 1 + mini_words: neighbor j of node e is
 //   table[e, j, 0] (id, -1 = no edge) then its first mini_words words.
-// Keys: int64 d << 32 | id (both fields >= 0), so ids up to 2^31 are exact;
-// key_inf = DINF << 32 | IINF marks an empty slot. With tie_bits > 0 the
-// id field holds the bit-reversal of the low tie_bits bits of the id
-// (encoded before every compare, decoded for the row fetch; the wrapper
-// decodes the output). Beam keys are unique except key_inf.
+// With tie_bits > 0 the key's id field holds the bit-reversal of the low
+// tie_bits bits of the id: encoded before the dedup and every compare,
+// decoded for the row fetch (the wrapper decodes the output).
 //
-// Per step, for one query (warp-synchronous, no block barrier):
-//  1. frontier: the first beam slot that is unexpanded, < key_inf and
-//     <= beam[ef-1] (the beam is sorted, so this is the best unexpanded
-//     key); none -> the query is done;
-//  2. each lane takes neighbors j = lane, lane+32, ... of the expanded
-//     node: id, then XOR + __popc over its prefix words; tie-encode the id;
-//  3. a candidate whose id is in the beam, or repeats an earlier candidate
-//     of the row, is a duplicate; the rest are fresh and count in visited;
-//  4. rank merge: beam key i moves to i + #(fresh < key), fresh key c to
-//     #(beam < c) + #(fresh < c); positions >= ef fall out.
+// Per step (the beam machinery is beam_common.cuh's): frontier; each lane
+// reads only its neighbors' ids (j = lane, lane+32, ...), in flight while
+// the id set is brought up to date; the dedup packs the F fresh ones into
+// [0, F), and lane c reads fresh neighbor c's prefix (16-byte loads when
+// MV is a multiple of 4); then the merge. Two dependent round trips a
+// step, but at W=64, mini_words=31 about 2.9 KB (a 32-byte sector per id,
+// 128 B per fresh neighbor) instead of the whole 8 KB row. Reading each
+// neighbor whole (id and prefix in one round trip, then the dedup) was
+// measured slower on the H100 (PERF.md) and is not kept.
+//
+// What bounds it on an H100. The first design (a shared-memory compare per
+// beam key and per earlier candidate for each candidate, ranks by counting
+// over all W slots) was issue-bound, with per-step work that doubled from
+// capacity 64 to 128. Now a step costs W/32 set placements, a few erasures
+// and F broadcasts per lane, and what is left is the chain of row reads:
+// each expansion reads one node's mini row anywhere in a table of many GB
+// (18 GB at 2.2M points), far past the 50 MB L2, and the next expansion
+// depends on it. Neither tensor cores (no products: XOR, popcount,
+// compares) nor TMA tiles (one data-chosen row a step, not a tile) apply;
+// the bulk L2 prefetch of the next frontier's 8 KB row would, but was
+// measured to cost more than it saves (PERF.md) and is not issued.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "beam_common.cuh"
+
 namespace {
 
-constexpr int kMaxW = 128;
-constexpr int kSlots = kMaxW / 32;  // candidates per lane at most
-constexpr int kMaxMv = 32;          // 1 + mini_words, at most
-constexpr int kWarps = 4;           // queries per block
-constexpr unsigned kFull = 0xffffffffu;
-constexpr long long kKeyInf = (0x7FFF0000LL << 32) | 0x7FFFFFFFLL;
+using beam::kFull;
+using beam::kIInf;
+using beam::kKeyInf;
+using beam::key_id;
 
-__device__ __forceinline__ int key_id(long long k) {
-  return static_cast<int>(k & 0xffffffffLL);
-}
+constexpr int kMaxW = 128;
+constexpr int kMaxMv = 32;  // 1 + mini_words, at most
+constexpr int kWarps = 4;   // queries per block
 
 // bit reversal of the low `bits` bits: an involution on [0, 2^bits)
 __device__ __forceinline__ int tie_code(int id, int bits) {
@@ -68,41 +66,38 @@ __device__ __forceinline__ int tie_code(int id, int bits) {
               : id;
 }
 
-// Reads neighbor `p` (MV ints: id, then prefix words); returns its id and,
-// when the id is valid, sets d to the prefix distance to the query `q`
-// (q[0] unused, q[t] = query word t-1). MV = 0: the run-time width `mv`,
-// one 4-byte load per word; otherwise 16-byte loads.
-template <int MV>
-__device__ __forceinline__ int read_neighbor(const int* __restrict__ p,
-                                             const int* q, int mv, int& d) {
-  if constexpr (MV > 0) {
+// Prefix distance of neighbor `p` (MV ints: id, then prefix words) to the
+// query `q` (q[0] = 0, q[t] = query word t-1). mv % 4 == 0: 16-byte loads,
+// all issued before the first use; otherwise 4-byte loads.
+__device__ __forceinline__ int prefix_distance(const int* __restrict__ p,
+                                               const int* q, int mv) {
+  int s = 0;
+  if ((mv & 3) == 0) {
     const int4* p4 = reinterpret_cast<const int4*>(p);
     const int4* q4 = reinterpret_cast<const int4*>(q);
-    const int4 v0 = __ldg(p4);
-    if (v0.x < 0) return v0.x;
-    const int4 c0 = q4[0];
-    int s = __popc(v0.y ^ c0.y) + __popc(v0.z ^ c0.z) + __popc(v0.w ^ c0.w);
+    const int n4 = mv >> 2;  // <= 8
+    int4 v[kMaxMv / 4];
 #pragma unroll
-    for (int c = 1; c < MV / 4; ++c) {
-      const int4 v = __ldg(p4 + c);
-      const int4 w = q4[c];
-      s += __popc(v.x ^ w.x) + __popc(v.y ^ w.y) + __popc(v.z ^ w.z) +
-           __popc(v.w ^ w.w);
-    }
-    d = s;
-    return v0.x;
-  } else {
-    const int id = __ldg(p);
-    if (id < 0) return id;
-    int s = 0;
-    for (int t = 1; t < mv; ++t) s += __popc(__ldg(p + t) ^ q[t]);
-    d = s;
-    return id;
+    for (int c = 0; c < kMaxMv / 4; ++c)
+      if (c < n4) v[c] = __ldg(p4 + c);
+    s = __popc(v[0].y ^ q4[0].y) + __popc(v[0].z ^ q4[0].z) +
+        __popc(v[0].w ^ q4[0].w);
+#pragma unroll
+    for (int c = 1; c < kMaxMv / 4; ++c)
+      if (c < n4) {
+        const int4 w = q4[c];
+        s += __popc(v[c].x ^ w.x) + __popc(v[c].y ^ w.y) +
+             __popc(v[c].z ^ w.z) + __popc(v[c].w ^ w.w);
+      }
+    return s;
   }
+  for (int t = 1; t < mv; ++t) s += __popc(__ldg(p + t) ^ q[t]);
+  return s;
 }
 
-template <int CAP, int MV>
-__global__ void __launch_bounds__(kWarps * 32)
+// At most 64 registers up to two slots: 32 resident warps per SM.
+template <int CAP, int SLOTS>
+__global__ void __launch_bounds__(kWarps * 32, SLOTS <= 2 ? 8 : 4)
 mini_beam_search_kernel(const int* __restrict__ queries, int words,
                         const long long* __restrict__ init_keys, int E,
                         const int* __restrict__ table,
@@ -110,11 +105,12 @@ mini_beam_search_kernel(const int* __restrict__ queries, int words,
                         int* __restrict__ out_visited,
                         int* __restrict__ out_steps, int B, int cap, int W,
                         int mv, int ef, int tie_bits, int max_steps) {
-  __shared__ long long s_bk[kWarps][CAP];  // beam keys, ascending
-  __shared__ long long s_nk[kWarps][CAP];  // merged beam keys
-  __shared__ long long s_ck[kWarps][kMaxW];  // candidate keys
-  __shared__ int s_bf[kWarps][CAP];  // expanded flags
-  __shared__ int s_nf[kWarps][CAP];  // merged flags
+  using Smem = beam::Beam<CAP, SLOTS>;
+  constexpr int S = Smem::kSet;
+  __shared__ Smem s_beam[kWarps];
+  // the fresh candidates, packed: row position and encoded id
+  __shared__ int s_col[kWarps][Smem::kW];
+  __shared__ int s_code[kWarps][Smem::kW];
   __shared__ __align__(16) int s_q[kWarps][kMaxMv];  // 0, query prefix
 
   const int warp = threadIdx.x >> 5;
@@ -122,121 +118,94 @@ mini_beam_search_kernel(const int* __restrict__ queries, int words,
   const int b = blockIdx.x * kWarps + warp;
   if (b >= B) return;  // warp-uniform: the whole warp leaves together
 
-  long long* bk = s_bk[warp];
-  long long* nk = s_nk[warp];
-  long long* ck = s_ck[warp];
-  int* bf = s_bf[warp];
-  int* nf = s_nf[warp];
+  Smem& sm = s_beam[warp];
+  int* col = s_col[warp];
+  int* code = s_code[warp];
   const int* q = s_q[warp];
-  const int stride = MV > 0 ? MV : mv;
   const int id_cap = tie_bits ? static_cast<int>((1u << tie_bits) - 1u) : 0;
+  const size_t row_ints = (size_t)W * mv;
 
   s_q[warp][lane] =
       (lane >= 1 && lane < mv) ? queries[(size_t)b * words + lane - 1] : 0;
-  int seeds = 0;  // valid seeds: the visited count starts there
-  for (int i = lane; i < ef; i += 32) {
-    const long long k = i < E ? init_keys[(size_t)b * E + i] : kKeyInf;
-    bk[i] = k;
-    bf[i] = 0;
-    seeds += i < E && key_id(k) != 0x7FFFFFFF;
-  }
-  int visited = __reduce_add_sync(kFull, seeds);
+  int visited = beam::load_seeds(sm, init_keys + (size_t)b * E, E, ef, lane);
   __syncwarp();
 
-  int steps = 0;
+  // hint: the frontier slot the last merge found (-1: none), -2: scan
+  // tombs: erased set slots since the last rebuild (S: rebuild first)
+  const int rebuild_after = Smem::rebuild_after(ef, W);
+  int cur = 0, steps = 0, hint = -2, tombs = S;
   while (steps < max_steps) {
-    // 1. frontier
-    const long long worst = bk[ef - 1];
-    int pos = -1;
-    for (int base = 0; base < ef; base += 32) {
-      const int i = base + lane;
-      const bool open = i < ef && !bf[i] && bk[i] < kKeyInf && bk[i] <= worst;
-      const unsigned m = __ballot_sync(kFull, open);
-      if (m) {
-        pos = base + __ffs(m) - 1;
-        break;
-      }
-    }
+    const long long* bk = sm.key[cur];
+    unsigned char* bf = sm.flag[cur];
+    const int pos = hint == -2 ? beam::frontier(bk, bf, ef, lane) : hint;
     if (pos < 0) break;
     ++steps;
+    if (steps == 1 && E > 1)
+      beam::drop_repeated_seeds<CAP>(sm.key[cur], E, ef, lane);
     int e = key_id(bk[pos]);
     if (tie_bits) e = tie_code(min(max(e, 0), id_cap), tie_bits);
     e = min(max(e, 0), cap - 1);
+    const int* row = table + (size_t)e * row_ints;
+    int ids[SLOTS];  // the row's ids, in flight during the set work
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int j = s * 32 + lane;
+      ids[s] = j < W ? __ldg(row + (size_t)j * mv) : -1;
+    }
     __syncwarp();
     if (lane == 0) bf[pos] = 1;
+    if (tombs > rebuild_after) {
+      beam::set_rebuild<S, CAP>(sm.set, bk, ef, lane);
+      tombs = 0;
+    }
+    bool iinf_seen = beam::beam_has_iinf<CAP>(bk, ef, lane);
 
-    // 2. candidate keys
-    const int* row = table + (size_t)e * W * stride;
-    long long key[kSlots];
+    int F = 0, counted = 0;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < SLOTS; ++s) {
       const int j = s * 32 + lane;
-      key[s] = kKeyInf;
-      if (j < W) {
-        int d = 0;
-        const int nbr = read_neighbor<MV>(row + (size_t)j * stride, q, mv, d);
-        if (nbr >= 0)
-          key[s] = (static_cast<long long>(d) << 32) |
-                   static_cast<unsigned>(tie_code(nbr, tie_bits));
-        ck[j] = key[s];
+      const int id = ids[s];
+      const int c = id >= 0 ? tie_code(id, tie_bits) : kIInf;
+      int slot;
+      const bool fresh = beam::dedup_slot<S>(sm.set, j < W ? c : -1, id >= 0,
+                                             iinf_seen, lane, slot);
+      const unsigned m = __ballot_sync(kFull, fresh);
+      if (fresh) {
+        const int at = F + __popc(m & beam::lanemask_lt());
+        col[at] = j;
+        code[at] = c;
+        sm.slot[at] = slot;
+      }
+      F += __popc(m);
+      counted += __popc(__ballot_sync(kFull, fresh && c != kIInf));
+    }
+    __syncwarp();
+    if (F == 0) {
+      hint = -2;
+      continue;
+    }
+    long long key[SLOTS];
+#pragma unroll
+    for (int t = 0; t < SLOTS; ++t) {
+      const int c = t * 32 + lane;
+      key[t] = kKeyInf;
+      if (c < F) {
+        const int d = prefix_distance(row + (size_t)col[c] * mv, q, mv);
+        key[t] = (static_cast<long long>(d) << 32) |
+                 static_cast<unsigned>(code[c]);
       }
     }
-    __syncwarp();
-
-    // 3. dedup by id against the beam and against earlier candidates
-    int fresh_total = 0;
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int j = s * 32 + lane;
-      const int cid = key_id(key[s]);
-      bool fresh = j < W && key[s] < kKeyInf;
-      for (int i = 0; fresh && i < ef; ++i) fresh = key_id(bk[i]) != cid;
-      for (int i = 0; fresh && i < j; ++i) fresh = key_id(ck[i]) != cid;
-      if (!fresh) key[s] = kKeyInf;
-      fresh_total += __popc(__ballot_sync(kFull, fresh));
-    }
-    __syncwarp();
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int j = s * 32 + lane;
-      if (j < W) ck[j] = key[s];
-    }
-    __syncwarp();
-    if (fresh_total == 0) continue;
-    visited += fresh_total;
-
-    // 4. rank merge into nk/nf, then copy back
-    for (int i = lane; i < ef; i += 32) {
-      const long long k = bk[i];
-      int p = i;
-      for (int j = 0; j < W; ++j) p += ck[j] < k;
-      if (p < ef) {
-        nk[p] = k;
-        nf[p] = bf[i];
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const long long c = key[s];
-      if (c < kKeyInf) {
-        int p = 0;
-        for (int i = 0; i < ef; ++i) p += bk[i] < c;
-        for (int j = 0; j < W; ++j) p += ck[j] < c;
-        if (p < ef) {
-          nk[p] = c;
-          nf[p] = 0;
-        }
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < ef; i += 32) {
-      bk[i] = nk[i];
-      bf[i] = nf[i];
-    }
-    __syncwarp();
+    visited += counted;
+    int erased;
+    hint = beam::merge<S, CAP, SLOTS>(bk, bf, sm.key[cur ^ 1],
+                                      sm.flag[cur ^ 1], sm.fresh, key, F, ef,
+                                      sm.set, sm.slot, lane, erased);
+    tombs += erased;
+    cur ^= 1;
   }
 
-  for (int i = lane; i < ef; i += 32) out_keys[(size_t)b * ef + i] = bk[i];
+  for (int i = lane; i < ef; i += 32)
+    out_keys[(size_t)b * ef + i] = sm.key[cur][i];
   if (lane == 0) {
     out_visited[b] = visited;
     out_steps[b] = steps;
@@ -255,25 +224,40 @@ struct Args {
   int B, cap, W, mv, ef, tie_bits, max_steps;
 };
 
-template <int CAP, int MV>
-void launch(const Args& a, cudaStream_t stream) {
+// Launches the instance (CAP, SLOTS) on `stream`, or with `warps` set, only
+// reports its resident warps per SM.
+template <int CAP, int SLOTS>
+void run(const Args& a, cudaStream_t stream, int* warps) {
+  const auto kernel = mini_beam_search_kernel<CAP, SLOTS>;
+  if (warps) {
+    int blocks = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                  kWarps * 32, 0);
+    *warps = blocks * kWarps;
+    return;
+  }
   const dim3 grid((a.B + kWarps - 1) / kWarps);
-  const dim3 block(kWarps * 32);
-  mini_beam_search_kernel<CAP, MV><<<grid, block, 0, stream>>>(
+  kernel<<<grid, kWarps * 32, 0, stream>>>(
       a.queries, a.words, a.init_keys, a.E, a.table, a.out_keys,
       a.out_visited, a.out_steps, a.B, a.cap, a.W, a.mv, a.ef, a.tie_bits,
       a.max_steps);
 }
 
 template <int CAP>
-void launch_mv(const Args& a, cudaStream_t stream) {
-  switch (a.mv) {  // 16-byte loads where a neighbor is a whole int4 count
-    case 4: launch<CAP, 4>(a, stream); break;
-    case 8: launch<CAP, 8>(a, stream); break;
-    case 16: launch<CAP, 16>(a, stream); break;
-    case 32: launch<CAP, 32>(a, stream); break;
-    default: launch<CAP, 0>(a, stream); break;
+void run_slots(const Args& a, cudaStream_t stream, int* warps) {
+  switch ((a.W + 31) / 32) {  // row slots of 32
+    case 1: run<CAP, 1>(a, stream, warps); break;
+    case 2: run<CAP, 2>(a, stream, warps); break;
+    case 3: run<CAP, 3>(a, stream, warps); break;
+    default: run<CAP, 4>(a, stream, warps); break;
   }
+}
+
+void dispatch(const Args& a, cudaStream_t stream, int* warps) {
+  if (a.ef <= 64)
+    run_slots<64>(a, stream, warps);
+  else
+    run_slots<128>(a, stream, warps);
 }
 
 }  // namespace
@@ -302,12 +286,18 @@ int hnsw_mini_beam_search(const void* queries, int words,
                static_cast<int*>(out_visited),
                static_cast<int*>(out_steps),
                B, cap, W, mv, ef, tie_bits, max_steps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ef <= 64)
-    launch_mv<64>(a, s);
-  else
-    launch_mv<128>(a, s);
+  dispatch(a, static_cast<cudaStream_t>(stream), nullptr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident warps per SM of the instance that serves (ef, W).
+int hnsw_mini_beam_search_warps(int ef, int W) {
+  Args a{};
+  a.ef = ef;
+  a.W = W;
+  int warps = 0;
+  dispatch(a, nullptr, &warps);
+  return warps;
 }
 
 const char* hnsw_cuda_error_string(int code) {

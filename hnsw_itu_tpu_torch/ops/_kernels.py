@@ -6,11 +6,12 @@ Nothing is compiled at import. The first launch of a kernel runs
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
 into ``hnsw_itu_tpu_torch/build/`` and loads the library with ctypes. The
-file name carries a hash of the source, so an edited kernel is rebuilt and
-a stale library is never loaded. Every pointer and the stream pass as
-``ctypes.c_void_p``; the C entry returns ``cudaGetLastError()`` after its
-launch, and a nonzero code raises here. ``build_kernels`` builds every
-source at once, one nvcc process each.
+file name carries a hash of the source and of every local header it
+includes (``#include "..."``, followed through ``csrc/``), so an edited
+kernel or header is rebuilt and a stale library is never loaded. Every
+pointer and the stream pass as ``ctypes.c_void_p``; the C entry returns
+``cudaGetLastError()`` after its launch, and a nonzero code raises here.
+``build_kernels`` builds every source at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,11 +56,41 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_digest(src: str) -> str:
+    """sha256 (12 hex digits) over ``src`` and every local header it
+    includes, directly or through another header, looked up beside the
+    file that includes it; each file is hashed once, in include order."""
+    h = hashlib.sha256()
+    todo, seen = [os.path.abspath(src)], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(os.path.basename(path).encode() + b"\0" + text + b"\0")
+        here = os.path.dirname(path)
+        todo += [os.path.join(here, m.decode())
+                 for m in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(here, m.decode()))]
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str, csrc: str = CSRC,
+                 build_dir: str = BUILD_DIR) -> str:
+    """Where the library of ``csrc/<name>.cu`` is built: its file name
+    carries ``source_digest`` of the source."""
+    digest = source_digest(os.path.join(csrc, f"{name}.cu"))
+    return os.path.join(build_dir, f"{name}-{digest}.so")
+
+
 def _build(name: str, rebuild: bool) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    out = library_path(name)
     if os.path.exists(out) and not rebuild:
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached",
                                      "path": out})
@@ -93,6 +125,9 @@ _ENTRIES = {
     "hamming_block": ("hnsw_hamming_block", [_P] * 3 + [_I] * 4 + [_P]),
 }
 KERNELS = tuple(_ENTRIES)
+# the beam kernels also export hnsw_<name>_warps(ef, W): the resident warps
+# per SM of the instance that serves (ef, W)
+_BEAM = ("mini_beam_search", "dma_beam_search")
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -104,6 +139,9 @@ def _load(name: str) -> ctypes.CDLL:
             fn, argtypes = _ENTRIES[name]
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _I
+            if name in _BEAM:
+                warps = getattr(lib, f"hnsw_{name}_warps")
+                warps.argtypes, warps.restype = [_I, _I], _I
             lib.hnsw_cuda_error_string.argtypes = [_I]
             lib.hnsw_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
@@ -119,6 +157,12 @@ def build_kernels(rebuild: bool = False) -> None:
         list(pool.map(lambda n: _build(n, rebuild), KERNELS))
     for name in KERNELS:
         _load(name)
+
+
+def resident_warps(name: str, ef: int, W: int) -> int:
+    """Resident warps per SM of the beam kernel ``name``'s instance for
+    (ef, W), as the CUDA occupancy calculator gives them."""
+    return getattr(_load(name), f"hnsw_{name}_warps")(ef, W)
 
 
 def _check_rc(lib, rc: int, name: str) -> None:

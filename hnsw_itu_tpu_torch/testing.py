@@ -1,0 +1,104 @@
+"""Random graphs and the beam kernels' edge cases, in numpy, for the card
+checks: ``tests/test_torch_kernels.py`` and ``chip_smoke.py`` phase 2 both
+draw their small cases from here, so the two lists cannot drift apart.
+
+Every case is made from a seed with ``numpy.random.default_rng``; nothing
+here touches a device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# (kind, cap, W, ef, seeds) of the gather kernel's edge cases; the kinds
+# are edge_graph's
+GATHER_EDGES = [("full", 1024, 128, 96, 1), ("random", 256, 24, 48, 1),
+                ("one_id", 256, 64, 32, 1), ("near_max", 256, 32, 16, 2),
+                ("collide", 8192, 32, 64, 1), ("random", 256, 64, 1, 1),
+                ("random", 256, 64, 128, 128), ("full", 256, 128, 128, 128)]
+# (kind, cap, W, ef, seeds, mini_words, tie_bits) of the mini kernel's
+MINI_EDGES = [("full", 1024, 128, 96, 1, 7, 0),
+              ("random", 256, 24, 48, 1, 7, 0),
+              ("one_id", 256, 64, 32, 1, 3, 0),
+              ("near_max", 256, 32, 16, 2, 7, 0),
+              ("near_max", 256, 32, 24, 2, 7, 31),
+              ("collide", 8192, 32, 64, 1, 31, 0),
+              ("random", 256, 64, 1, 1, 7, 0),
+              ("random", 256, 64, 128, 128, 7, 8),
+              ("full", 256, 128, 128, 128, 31, 0)]
+# (W, ef, seeds, distinct ids among them, tie_bits of the mini kernel) of
+# the repeated-seed cases: a sampled entry over fewer points than its
+# sample gives a query the same seed more than once
+REPEATED_SEEDS = [(64, 32, 4, 2, 0), (24, 96, 8, 3, 8), (32, 16, 16, 1, 0),
+                  (64, 128, 128, 40, 9)]
+
+
+def random_graph(rng, cap, w, words):
+    """(points uint32[cap, words], adj int32[cap, w]): each row holds
+    w/2 to w distinct random ids, then -1."""
+    pts = rng.integers(0, 2**32, size=(cap, words), dtype=np.uint32)
+    adj = np.full((cap, w), -1, np.int32)
+    for i in range(cap):
+        deg = rng.integers(w // 2, w + 1)
+        adj[i, :deg] = rng.choice(cap, size=deg, replace=False)
+    return pts, adj
+
+
+def edge_graph(rng, kind, cap, w, words=32):
+    """(points, adj, seedable ids) of a graph on the edges of the beam
+    kernels: ``full`` rows of w distinct ids other than the node's own, so
+    a first expansion finds every neighbor fresh (F = W); ``one_id`` rows
+    that repeat one id throughout; ``near_max`` random rows where a quarter
+    of the entries are ids 2^31 - 1 - k, k < 4 (2^31 - 1 itself is the
+    empty slot's id field); ``collide`` rows over 64 ids that are 512
+    apart in 4 residues, so every id hashes into 4 buckets of the id set
+    (its size divides 512); else random rows."""
+    pts = rng.integers(0, 2**32, size=(cap, words), dtype=np.uint32)
+    live = np.arange(cap, dtype=np.int32)
+    if kind == "full":
+        adj = np.stack([rng.choice(cap - 1, size=w, replace=False)
+                        for _ in range(cap)]).astype(np.int32)
+        adj += adj >= np.arange(cap, dtype=np.int32)[:, None]
+    elif kind == "one_id":
+        adj = np.repeat(((np.arange(cap) * 7 + 1) % cap)[:, None], w,
+                        axis=1).astype(np.int32)
+    elif kind == "near_max":
+        _, adj = random_graph(rng, cap, w, words)
+        big = rng.random(adj.shape) < 0.25
+        adj[big] = (2**31 - 1) - rng.integers(0, 4, size=int(big.sum()))
+    elif kind == "collide":
+        live = np.array([r + 512 * k for r in range(4) for k in range(16)],
+                        np.int32)
+        adj = np.full((cap, w), -1, np.int32)
+        for i in live:
+            adj[i] = rng.choice(live[live != i], size=w, replace=False)
+    else:
+        _, adj = random_graph(rng, cap, w, words)
+    return pts, adj, live
+
+
+def edge_inputs(kind, cap, w, E, salt=0, B=32, words=32):
+    """numpy (points, adj, queries uint32[B, words], seeds int32[B, E]) of
+    one edge case: E distinct seeds per query among edge_graph's seedable
+    ids. ``salt`` (the mini cases pass mini_words) varies the draw."""
+    rng = np.random.default_rng(sum(map(ord, kind)) + cap + w + E + salt)
+    pts, adj, live = edge_graph(rng, kind, cap, w, words)
+    qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+    seeds = np.stack([rng.choice(live, size=E, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    return pts, adj, qs, seeds
+
+
+def repeated_seed_inputs(w, E, distinct, cap=256, B=32, words=32):
+    """numpy (points, adj, queries, seeds int32[B, E]) of a random graph
+    whose queries each draw E seeds from ``distinct`` ids of their own,
+    every one of those ids at least once: seed ids repeat."""
+    rng = np.random.default_rng(1000 * w + 10 * E + distinct)
+    pts, adj = random_graph(rng, cap, w, words)
+    qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+    seeds = np.empty((B, E), np.int32)
+    for b in range(B):
+        pool = rng.choice(cap, size=distinct, replace=False)
+        seeds[b] = rng.permutation(np.concatenate(
+            [pool, rng.choice(pool, size=E - distinct)]))
+    return pts, adj, qs, seeds

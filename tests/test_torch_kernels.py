@@ -4,16 +4,26 @@ seven (W, ef) pairs of the JAX kernel's contract and the clamped-key case;
 the mini kernel (d, ids, visited, steps) at beam capacity 64 and 128, with
 several seeds, with tie_bits, and on a table past 2^21 rows; the gather
 beam search (keys, visited, steps) across W, ef, seeds, a node map and
-repeated ids; the dense Hamming block on odd and batched shapes.
+repeated ids; both beam kernels on the edges of their id set, slots and
+merge (W = 128 and 24, rows that are all fresh or one id throughout, ids
+near 2^31 - 1, ids that collide in the set, ef = 1 and 128 with ef seeds,
+tie_bits 31; the cases of ``hnsw_itu_tpu_torch.testing``, which
+chip_smoke.py runs too) and with seeds that repeat an id; the dense
+Hamming block on odd and batched shapes. One test needs no card: the kernel libraries' names
+follow their included headers.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest -p no:cacheprovider
-tests/test_torch_kernels.py``. Without a card every test skips."""
+tests/test_torch_kernels.py``. Without a card every test but that one
+skips."""
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from hnsw_itu_tpu_torch.ops import _kernels
 from hnsw_itu_tpu_torch.ops.dma_search import (dma_beam_search,
                                                dma_beam_search_plain)
 from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
@@ -25,6 +35,9 @@ from hnsw_itu_tpu_torch.ops.mini_search import (materialize_mini,
                                                 mini_beam_search,
                                                 mini_beam_search_plain)
 from hnsw_itu_tpu_torch.ops.search import beam_search_packed
+from hnsw_itu_tpu_torch.testing import (GATHER_EDGES, MINI_EDGES,
+                                       REPEATED_SEEDS, edge_inputs,
+                                       random_graph, repeated_seed_inputs)
 
 # (W, ef) pairs of the JAX kernel's contract (tests/test_pallas_search.py)
 PAIRS = [(16, 24), (32, 64), (64, 48), (32, 32), (32, 16), (64, 96),
@@ -33,15 +46,6 @@ PAIRS = [(16, 24), (32, 64), (64, 48), (32, 32), (32, 16), (64, 96),
 # (tests/test_dma_search.py::test_mini_matches_xla_on_prefix)
 MINI_CASES = [(64, 48, 3), (64, 96, 7), (32, 32, 3), (32, 48, 31),
               (32, 64, 31), (64, 128, 7), (32, 96, 7)]
-
-
-def random_graph(rng, cap, w, words):
-    pts = rng.integers(0, 2**32, size=(cap, words), dtype=np.uint32)
-    adj = np.full((cap, w), -1, np.int32)
-    for i in range(cap):
-        deg = rng.integers(w // 2, w + 1)
-        adj[i, :deg] = rng.choice(cap, size=deg, replace=False)
-    return pts, adj
 
 
 def fused_inputs(pts, adj, qs, id_bits, max_d, device):
@@ -294,3 +298,92 @@ def test_hamming_kernel_matches_plain(cuda_device, shape):
     torch.cuda.synchronize()
     assert hamming_block.kernel_launches == launches + 1
     torch.testing.assert_close(got, hamming_block_plain(a, b), rtol=0, atol=0)
+
+
+def test_library_name_follows_included_headers(tmp_path):
+    """An edit to a header that a kernel includes (directly or through
+    another header) renames its library, so a stale build is never
+    loaded; an edit to a header it does not include does not."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "beam_common.cuh"\nint f();\n')
+    (csrc / "beam_common.cuh").write_text('#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("constexpr int kA = 1;\n")
+    (csrc / "other.cuh").write_text("constexpr int kB = 1;\n")
+    build = str(tmp_path / "build")
+
+    def path():
+        return _kernels.library_path("k", csrc=str(csrc), build_dir=build)
+
+    first = path()
+    assert os.path.dirname(first) == build
+    assert os.path.basename(first).startswith("k-")
+    (csrc / "other.cuh").write_text("constexpr int kB = 2;\n")
+    assert path() == first
+    (csrc / "inner.cuh").write_text("constexpr int kA = 2;\n")
+    second = path()
+    assert second != first
+    (csrc / "beam_common.cuh").write_text('#include "inner.cuh"\n// x\n')
+    assert path() not in (first, second)
+
+
+def gather_edge_inputs(pts, adj, qs, seeds, dev):
+    """Card tensors (adj, points, queries, seed distances, seeds) of one
+    gather case."""
+    p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+    s = torch.from_numpy(seeds).to(dev)
+    d0 = popcount_sum(p[s.long()] ^ q[:, None, :])
+    return torch.from_numpy(adj).to(dev), p, q, d0, s
+
+
+def _gather_edge_vs_plain(adj, p, q, d0, s, *, ef):
+    args = (adj, p, None, q, d0, s)
+    launches = dma_beam_search.kernel_launches
+    got = dma_beam_search(*args, ef=ef, max_steps=256)
+    torch.cuda.synchronize()
+    assert dma_beam_search.kernel_launches == launches + 1
+    want = dma_beam_search_plain(*args, ef=ef, max_steps=256)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cap,w,ef,E", GATHER_EDGES)
+def test_gather_kernel_edges(cuda_device, kind, cap, w, ef, E):
+    _gather_edge_vs_plain(*gather_edge_inputs(*edge_inputs(kind, cap, w, E),
+                                         cuda_device), ef=ef)
+
+
+def mini_edge_inputs(pts, adj, qs, seeds, mw, w, dev):
+    """Card tensors (table, queries, seed prefix distances, seeds) of one
+    mini case; W = 24 keeps the table's first 24 columns
+    (materialize_mini pads rows to 32)."""
+    p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+    table = materialize_mini(p, torch.from_numpy(adj).to(dev),
+                             mini_words=mw)[:, :w].contiguous()
+    s = torch.from_numpy(seeds).to(dev)
+    return table, q, popcount_sum(p[s.long(), :mw] ^ q[:, None, :mw]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cap,w,ef,E,mw,tie", MINI_EDGES)
+def test_mini_kernel_edges(cuda_device, kind, cap, w, ef, E, mw, tie):
+    table, q, d0, s = mini_edge_inputs(*edge_inputs(kind, cap, w, E, salt=mw),
+                                       mw, w, cuda_device)
+    assert table.shape[1] == w
+    _mini_vs_plain(table, q, d0, s, ef=ef, mini_words=mw, max_steps=256,
+                   tie_bits=tie)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,ef,E,distinct,tie", REPEATED_SEEDS)
+def test_beam_kernels_repeated_seeds(cuda_device, w, ef, E, distinct, tie):
+    """Seeds that repeat an id: both kernels drop the later copies at the
+    first step, as the plain merge does, and end (no spin on an id the
+    set holds once)."""
+    inputs = repeated_seed_inputs(w, E, distinct)
+    _gather_edge_vs_plain(*gather_edge_inputs(*inputs, cuda_device), ef=ef)
+    table, q, d0, s = mini_edge_inputs(*inputs, 7, w, cuda_device)
+    _mini_vs_plain(table, q, d0, s, ef=ef, mini_words=7, max_steps=256,
+                   tie_bits=tie)
