@@ -10,7 +10,8 @@ Run from the root of a checkout. Phases, each printed as it ends:
   1. card and build: nvidia-smi's name and power limit, torch and CUDA
      versions, and the four kernels compiled by nvcc from
      hnsw_itu_tpu_torch/csrc/ for sm_90a (one nvcc each, in parallel),
-     with ptxas's register and spill lines;
+     with ptxas's register and spill lines for every instance, and the
+     three beam kernels' resident warps per SM;
   2. small random cases: each kernel against its plain PyTorch version:
      the fused kernel for the seven (W, ef) pairs of the JAX kernel's
      contract and the clamped-key case (keys/visited/steps equal), the
@@ -18,11 +19,13 @@ Run from the root of a checkout. Phases, each printed as it ends:
      kernels' contract with 1, 4 and 8 seeds and tie_bits 0 and 8
      (d/ids/visited/steps equal), the gather kernel across W, ef, seeds,
      a node map and repeated ids (keys/visited/steps equal), the Hamming
-     block kernel on odd and batched shapes, and both beam kernels on
+     block kernel on odd and batched shapes, the three beam kernels on
      the edges of their id set, slots and merge (W 128 and 24, all-fresh
-     and one-id rows, ids near 2^31 - 1, colliding ids, ef 1 and 128 with
-     ef seeds, tie_bits 31) and with seeds that repeat an id, the cases of
-     hnsw_itu_tpu_torch/testing.py;
+     and one-id rows, ef 1 and 128; for the gather and mini kernels ids
+     near 2^31 - 1, colliding ids, ef seeds, tie_bits 31 and seeds that
+     repeat an id; for the fused kernel a row repeating an id with another
+     sketch, keys at the clamp of id_bits 25 and 30, ids at 2^id_bits - 1,
+     max_steps 0), the cases of hnsw_itu_tpu_torch/testing.py;
   3. data and build: make_dataset(0, n, nq), the HNSW built on the host by
      the native engine (efc=96, m=24, M=64), tensors on the card;
   4. oracle: exact k=10 ground truth on the card, its distances equal to
@@ -31,7 +34,9 @@ Run from the root of a checkout. Phases, each printed as it ends:
      one batch; warm run, then the best of 3; recall@10 >= 0.93, the
      kernel launched and the plain version never called;
   6. kernel against the plain version at the slice shapes: every query,
-     the same init keys, keys/visited/steps equal; both timed;
+     the same init keys, keys/visited/steps equal; both timed, with the
+     bound and the resident warps; then the ef sweep (32 to 128 at 32
+     steps), each point also against the plain version;
   7. the mini path, with the 100k index freed: make_dataset(0, mini_n,
      nq), the host build (capacity at least 2.2M rows, past the 2^21
      ids an int32 packed key holds, so the policy refuses the fused table
@@ -62,7 +67,9 @@ Run from the root of a checkout. Phases, each printed as it ends:
      sampled entry's shape;
  11. the device-built index served on the fused path: oracle, fused
      table, knns at k=10, ef=32, max_steps auto; best of 3,
-     recall@10 >= 0.93.
+     recall@10 >= 0.93, the fused kernel's launches in those calls (the
+     plain version never called); then the kernel against its plain
+     version on every query at those shapes, both timed, with the bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero
@@ -206,7 +213,9 @@ def phase_card():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[1]   ptxas: {line.strip()}")
-    for name, shapes in (("dma_beam_search", ((1, 24), (96, 24), (96, 64))),
+    for name, shapes in (("fused_beam_search", ((32, 64), (128, 64),
+                                                (32, 128))),
+                         ("dma_beam_search", ((1, 24), (96, 24), (96, 64))),
                          ("mini_beam_search", ((32, 64), (96, 64)))):
         log(f"[1] {name}: resident warps per SM (occupancy calculator) at "
             + ", ".join(f"ef={ef} W={w}: "
@@ -353,19 +362,27 @@ def phase_query(index, qs, gt_i, dev):
     return best
 
 
-def phase_slice_shapes(index, qs, dev, smi, knns_s):
+def fused_at_served_shapes(index, qs, dev, smi, *, max_steps, tag,
+                           sweep=False):
+    """The fused kernel against its plain version on every query, with the
+    init keys knns makes (sampled entry, queries sorted by entry distance):
+    keys/visited/steps equal; both timed, the bytes the search must move
+    and their bound, the resident warps; with ``sweep`` also the ef sweep
+    at SWEEP_STEPS expansions."""
     import torch
 
     from hnsw_itu_tpu_torch.models.nsw import _id_bits
+    from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.entry import sampled_entry
     from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
                                                      key_clamp)
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
     from hnsw_itu_tpu_torch.ops.search import beam_search_packed
 
+    table = index.fused
     q = as_sketches(qs, dev)
-    words = q.shape[1]
-    id_bits = _id_bits(index.fused.cap)
+    B, words = q.shape
+    id_bits = _id_bits(table.cap)
     max_d = key_clamp(id_bits, words * 32)
 
     def entry():
@@ -377,36 +394,66 @@ def phase_slice_shapes(index, qs, dev, smi, knns_s):
     order = torch.argsort(d0, stable=True)
     qs_o = q[order].contiguous()
     init = ((d0[order].clamp(max=max_d) << id_bits) | eps[order]).contiguous()
-    kw = dict(ef=EF, id_bits=id_bits, max_d=max_d, max_steps=MAX_STEPS)
-    got = fused_beam_search(index.fused, qs_o, init, **kw)
-    st = {}
-    want = beam_search_packed(index.fused.ids, index.fused.data, qs_o, init,
-                              stats=st, **kw)
-    torch.cuda.synchronize()
-    err = max_abs_diff(got, want)
-    # bytes the search must move: each expansion's W ids and each valid
-    # neighbor's sketch, the queries and entry keys in, keys and counts out
-    B = len(qs)
-    nbytes = (st["rows"] * index.fused.width * 4 + st["edges"] * words * 4
-              + B * (words + 1) * 4 + B * EF * 4 + B * 8)
-    log(f"[6] {len(qs)} queries at N={index.n}: kernel vs plain max |diff| "
-        f"{err} over keys, visited, steps")
-    if err:
-        raise AssertionError("kernel != plain at the slice shapes")
-    k_ms = cuda_ms(lambda: fused_beam_search(index.fused, qs_o, init, **kw),
-                   10)
-    p_ms = cuda_ms(lambda: beam_search_packed(
-        index.fused.ids, index.fused.data, qs_o, init, **kw), 2)
-    e_ms = cuda_ms(entry, 10)
+
+    def check(ef, steps):
+        """(max |diff|, kernel ms, plain ms, bytes, plain stats, (steps/q,
+        visited/q)); raises where the kernel and the plain version differ"""
+        kw = dict(ef=ef, id_bits=id_bits, max_d=max_d, max_steps=steps)
+        got = fused_beam_search(table, qs_o, init, **kw)
+        st = {}
+        want = beam_search_packed(table.ids, table.data, qs_o, init,
+                                  stats=st, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        if err:
+            raise AssertionError(f"fused kernel != plain at N={index.n}, "
+                                 f"ef={ef}, max_steps={steps}")
+        k_ms = cuda_ms(lambda: fused_beam_search(table, qs_o, init, **kw), 10)
+        p_ms = cuda_ms(lambda: beam_search_packed(
+            table.ids, table.data, qs_o, init, **kw), 2)
+        # bytes the search must move: each expansion's W ids and each valid
+        # neighbor's sketch (the dedup key holds the distance, so every one
+        # is read), the queries and entry keys in, keys and counts out
+        nbytes = (st["rows"] * table.width * 4 + st["edges"] * words * 4
+                  + B * (words + 1) * 4 + B * ef * 4 + B * 8)
+        return err, k_ms, p_ms, nbytes, st, (
+            float(got[2].float().mean()), float(got[1].float().mean()))
+
+    err, k_ms, p_ms, nbytes, st, (steps_q, vis_q) = check(EF, max_steps)
     b_ms = bound_ms(nbytes)
-    log(f"[6] on {smi}: fused kernel {k_ms:.3f} ms, plain version "
-        f"{p_ms:.3f} ms, sampled entry {e_ms:.3f} ms, whole knns "
-        f"{knns_s * 1e3:.3f} ms (host clock), for {len(qs)} queries")
-    log(f"[6] the search reads {st['rows']} rows, {st['edges']} valid "
+    warps = _kernels.resident_warps("fused_beam_search", EF, table.width)
+    log(f"[{tag}] {B} queries at N={index.n}, ef={EF}, max_steps "
+        f"{max_steps}: kernel vs plain max |diff| {err} over keys, visited, "
+        f"steps (steps/q {steps_q:.2f}, visited/q {vis_q:.1f})")
+    log(f"[{tag}] on {smi}: fused kernel {k_ms:.3f} ms ({warps} resident "
+        f"warps/SM), plain version {p_ms:.3f} ms, for {B} queries")
+    log(f"[{tag}] the search reads {st['rows']} rows, {st['edges']} valid "
         f"edges: {nbytes / 1e9:.3f} GB, bound {b_ms:.3f} ms at "
         f"{HBM_BYTES_PER_S / 1e12} TB/s")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms}
+    out = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "steps_q": steps_q, "visited_q": vis_q,
+           "resident_warps": warps, "entry": entry}
+    if sweep:
+        out["sweep"] = []
+        for ef in SWEEP_EFS:
+            e, ms, _, nb, _, (sq, vq) = check(ef, SWEEP_STEPS)
+            out["max_abs_err"] = max(out["max_abs_err"], e)
+            out["sweep"].append({"ef": ef, "ms": ms, "bound_ms": bound_ms(nb),
+                                 "steps_q": sq, "visited_q": vq})
+            log(f"[{tag}] sweep ef={ef} max_steps={SWEEP_STEPS}: fused "
+                f"kernel {ms:.3f} ms, steps/q {sq:.2f}, visited/q {vq:.1f}, "
+                f"bound {bound_ms(nb):.3f} ms (kernel vs plain max |diff| "
+                f"{e})")
+    return out
+
+
+def phase_slice_shapes(index, qs, dev, smi, knns_s):
+    fused = fused_at_served_shapes(index, qs, dev, smi, max_steps=MAX_STEPS,
+                                   tag="6", sweep=True)
+    e_ms = cuda_ms(fused.pop("entry"), 10)
+    log(f"[6] on {smi}: sampled entry {e_ms:.3f} ms, whole knns "
+        f"{knns_s * 1e3:.3f} ms (host clock), for {len(qs)} queries")
+    return fused
 
 
 def mini_seeds(points, q, n, mw, beams):
@@ -556,14 +603,39 @@ def phase_small_build_kernels(dev):
 def phase_small_edges(dev):
     """The beam kernels' edge cases and repeated-seed cases
     (hnsw_itu_tpu_torch/testing.py) against their plain versions through
-    the wrappers: (gather max |diff|, mini max |diff|)."""
+    the wrappers: (fused, gather, mini max |diff|)."""
     import torch
 
+    from hnsw_itu_tpu_torch.ops.fused_search import (FusedTable,
+                                                     fused_beam_search,
+                                                     key_clamp)
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
     from hnsw_itu_tpu_torch.ops.mini_search import materialize_mini
-    from hnsw_itu_tpu_torch.testing import (GATHER_EDGES, MINI_EDGES,
-                                            REPEATED_SEEDS, edge_inputs,
+    from hnsw_itu_tpu_torch.ops.search import beam_search_packed
+    from hnsw_itu_tpu_torch.testing import (FUSED_EDGES, GATHER_EDGES,
+                                            MINI_EDGES, REPEATED_SEEDS,
+                                            edge_inputs, fused_edge_inputs,
                                             repeated_seed_inputs)
+
+    def fused(case, pts, ids, data, qs, eps, ef, id_bits, max_steps):
+        p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+        table = FusedTable(ids=torch.from_numpy(ids).to(dev),
+                           data=as_sketches(data, dev))
+        e = torch.from_numpy(eps).to(dev)
+        max_d = key_clamp(id_bits, q.shape[1] * 32)
+        init = (popcount_sum(q ^ p[e.long()]).clamp(max=max_d)
+                << id_bits) | e
+        kw = dict(ef=ef, id_bits=id_bits, max_d=max_d, max_steps=max_steps)
+        got = fused_beam_search(table, q, init, **kw)
+        want = beam_search_packed(table.ids, table.data, q, init, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_diff(got, want)
+        log(f"[2] fused {case}: kernel vs plain max |diff| {err} (visited/q "
+            f"{got[1].float().mean():.1f}, steps/q "
+            f"{got[2].float().mean():.1f})")
+        if err:
+            raise AssertionError(f"fused kernel != plain at {case}")
+        return err
 
     def gather(case, pts, adj, qs, seeds, ef):
         p, q = as_sketches(pts, dev), as_sketches(qs, dev)
@@ -593,7 +665,12 @@ def phase_small_edges(dev):
             raise AssertionError(f"mini kernel != plain at {case} tie={tie}")
         return err
 
-    worst6 = worst_mini = 0
+    worst1 = worst6 = worst_mini = 0
+    for kind, cap, w, ef, id_bits, steps in FUSED_EDGES:
+        worst1 = max(worst1, fused(
+            f"edge {kind} cap={cap} W={w} ef={ef} id_bits={id_bits} "
+            f"max_steps={steps}", *fused_edge_inputs(kind, cap, w, id_bits),
+            ef, id_bits, steps))
     for kind, cap, w, ef, E in GATHER_EDGES:
         worst6 = max(worst6, gather(
             f"edge {kind} cap={cap} W={w} ef={ef} seeds={E}",
@@ -607,7 +684,7 @@ def phase_small_edges(dev):
         inputs = repeated_seed_inputs(w, E, distinct)
         worst6 = max(worst6, gather(case, *inputs, ef))
         worst_mini = max(worst_mini, mini(case, *inputs, w, ef, 7, tie))
-    return worst6, worst_mini
+    return worst1, worst6, worst_mini
 
 
 def phase_mini_query(index, qs, gt_i, dev):
@@ -981,12 +1058,15 @@ def phase_build_kernels(index, qs, dev, smi):
     }
 
 
-def phase_build_query(index, pts, qs, dev):
+def phase_build_query(index, pts, qs, dev, smi):
     """Serve the device-built index on the fused path: oracle, enable_inline
-    (fused table), knns at k=10, ef=32, max_steps auto; recall gate."""
+    (fused table), knns at k=10, ef=32, max_steps auto; recall gate; the
+    fused kernel's launches in those knns calls, then the kernel against
+    its plain version on every query at those shapes."""
     import numpy as np
     import torch
 
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.utils import recall_at_k
 
@@ -1004,6 +1084,7 @@ def phase_build_query(index, pts, qs, dev):
         f"{index.fused.data.numel() * 4 / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.2f} s")
     q = as_sketches(qs, dev)
+    fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
     index.knns(q, K, EF)
     torch.cuda.synchronize()
     best = float("inf")
@@ -1012,10 +1093,16 @@ def phase_build_query(index, pts, qs, dev):
         res = index.knns(q, K, EF)
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
+    launches = fused_beam_search.kernel_launches
+    plain = fused_beam_search.plain_calls
     ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
     if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
             or not (np.diff(dists, axis=1) >= 0).all():
         raise AssertionError("bad result on the device-built index")
+    log(f"[11] fused kernel launches {launches}, plain_calls {plain}")
+    if launches <= 0 or plain != 0:
+        raise AssertionError(f"served fused path launches {launches}, "
+                             f"plain calls {plain}")
     rec = recall_at_k(ids, gt_i, K)
     log(f"[11] knns k={K} ef={EF} (max_steps {index._steps_cap(EF)}) on the "
         f"device-built index: best of 3 {best * 1e3:.2f} ms for {nq} queries "
@@ -1024,7 +1111,11 @@ def phase_build_query(index, pts, qs, dev):
         f"{index.last_stats['steps'] / nq:.2f}")
     if rec < RECALL_GATE:
         raise AssertionError(f"recall@10 {rec:.4f} < {RECALL_GATE}")
-    return {"recall": rec, "knns_ms": best * 1e3}
+    kernel = fused_at_served_shapes(index, qs, dev, smi, tag="11",
+                                    max_steps=index._steps_cap(EF))
+    del kernel["entry"]
+    return {"recall": rec, "knns_ms": best * 1e3, "launches": launches,
+            "kernel": kernel}
 
 
 def main(argv=None) -> int:
@@ -1061,7 +1152,7 @@ def main(argv=None) -> int:
     err_small = phase_small_graphs(dev)
     err_small_mini = phase_small_mini(dev)
     err_small_dma, err_small_ham = phase_small_build_kernels(dev)
-    err_edge_dma, err_edge_mini = phase_small_edges(dev)
+    err_edge_fused, err_edge_dma, err_edge_mini = phase_small_edges(dev)
 
     # the fused path: build, table, queries; only its launches count
     fused_beam_search.kernel_launches = 0
@@ -1108,7 +1199,7 @@ def main(argv=None) -> int:
     # before extend_batched, and read right after build()
     pts, qs, index, build = phase_device_build(args.build_n, args.nq, dev)
     bk = phase_build_kernels(index, qs, dev, smi)
-    served = phase_build_query(index, pts, qs, dev)
+    served = phase_build_query(index, pts, qs, dev, smi)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
@@ -1116,12 +1207,19 @@ def main(argv=None) -> int:
         "source": KERNEL_SRC,
         "replaces": KERNEL_REPLACES,
         "launches": launches,
-        "max_abs_err": max(err_small, fused["max_abs_err"]),
+        "max_abs_err": max(err_small, err_edge_fused, fused["max_abs_err"],
+                           served["kernel"]["max_abs_err"]),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],
         "bound_ms": fused["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,  # no single PyTorch call runs a beam search
+        **{k: fused[k] for k in ("steps_q", "visited_q", "resident_warps",
+                                 "sweep")},
+        # the device-built index's knns (phase 11): its launches, and the
+        # kernel against its plain version at those shapes
+        "device_built": {"launches": served["launches"],
+                         **served["kernel"]},
     }, {
         "name": "mini_beam_search",
         "route": "cuda",
@@ -1157,7 +1255,8 @@ def main(argv=None) -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "searches")},
         "build": {k: build[k] for k in build if k not in (
             "dma_launches", "dma_plain", "ham_launches", "ham_plain")},
-        "knns_on_built_index": served,
+        "knns_on_built_index": {k: served[k] for k in ("recall",
+                                                        "knns_ms")},
     }, {
         "name": "hamming_block",
         "route": "cuda",

@@ -1,7 +1,8 @@
-// The beam machinery that the mini-table kernel (mini_beam_search.cu) and
-// the gather kernel (dma_beam_search.cu) share: one warp runs one query's
-// whole search; only the reads of a row and of the fresh neighbors' words
-// are kernel-specific.
+// The beam machinery that the three beam kernels share: the mini-table
+// kernel (mini_beam_search.cu), the gather kernel (dma_beam_search.cu) and
+// the fused kernel (fused_beam_search.cu). One warp runs one query's whole
+// search; only the reads of a row and of its neighbors' words are
+// kernel-specific.
 //
 // Contract: the XLA two-key merge of hnsw_itu_tpu/ops/search.py::
 // beam_search (expand=1, dedup="beam"), as hnsw_itu_tpu_torch/ops/search.py
@@ -12,10 +13,13 @@
 // entry of the row; the rest are fresh, and those with id < IINF count in
 // `visited`. The merge also keeps one beam key per id: seeds that repeat an
 // id (a sampled entry over fewer points than its sample gives such seeds)
-// lose their later copies at the first step (drop_repeated_seeds), so from
-// then on the beam's ids are distinct. Fresh keys never equal a beam key
-// (their ids differ), so the merge positions below are a permutation and
-// the result equals the merge's stable sort.
+// lose their later copies before the first step (drop_repeated_seeds), so
+// the beam's ids are distinct. Fresh keys never equal a beam key (their
+// ids differ), so the merge positions below are a permutation and the
+// result equals the merge's stable sort. The fused kernel's contract
+// dedups on its packed int32 key instead of the id; it widens each key to
+// the int64 k (key_id then returns the whole key), so that the "ids" here
+// are its packed keys, and narrows them back on the way out.
 //
 // Per step, for one warp (warp-synchronous, no block barrier):
 //  1. frontier: the slot of the best unexpanded key. The merge that ends a
@@ -124,13 +128,16 @@ __device__ __forceinline__ int load_seeds(Beam<CAP, SLOTS>& s,
   return __reduce_add_sync(kFull, seeds);
 }
 
-// At step 1, where the seeds repeat an id: every copy after the first
-// becomes key_inf, the beam closes up behind the rest, and the empty slots
-// go to its end, as the plain merge's dedup of the beam does at its first
-// step (the first copy is the best key, and the one expanded). The
-// frontier, slot 0, stays where it is; no key is expanded yet. Each lane
-// compares its seeds with the earlier ones, once per query. Ends with
-// __syncwarp.
+// Before the first step, where the seeds repeat an id: every copy after
+// the first becomes key_inf, the beam closes up behind the rest, and the
+// empty slots go to its end, as the plain merge's dedup of the beam does
+// at its first step (the first copy is the best key, and the one
+// expanded). The first frontier, slot 0, stays where it is. The caller
+// runs it once, before the step loop, where that loop will take a step
+// (max_steps > 0 and beam[0] < key_inf), and only in its instances for
+// more than one seed: code here, even never run, costs the one-seed
+// instances spills in their step loop (PERF.md). Each lane compares its
+// seeds with the earlier ones. Ends with __syncwarp.
 template <int CAP>
 __device__ __forceinline__ void drop_repeated_seeds(long long* bk, int E,
                                                     int ef, int lane) {
@@ -159,6 +166,35 @@ __device__ __forceinline__ void drop_repeated_seeds(long long* bk, int E,
   }
   for (int i = ef - gone + lane; i < ef; i += 32) bk[i] = kKeyInf;
   __syncwarp();
+}
+
+// Hamming distance of the point at `p` to the query `q` (shared memory).
+// words % 4 == 0: 16-byte loads, eight issued before the first use;
+// otherwise one 4-byte load per word.
+__device__ __forceinline__ int point_distance(const int* __restrict__ p,
+                                              const int* q, int words) {
+  int s = 0;
+  if ((words & 3) == 0) {
+    const int4* p4 = reinterpret_cast<const int4*>(p);
+    const int4* q4 = reinterpret_cast<const int4*>(q);
+    const int n4 = words >> 2;
+    for (int c0 = 0; c0 < n4; c0 += 8) {
+      int4 v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < n4) v[c] = __ldg(p4 + c0 + c);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < n4) {
+          const int4 w = q4[c0 + c];
+          s += __popc(v[c].x ^ w.x) + __popc(v[c].y ^ w.y) +
+               __popc(v[c].z ^ w.z) + __popc(v[c].w ^ w.w);
+        }
+    }
+    return s;
+  }
+  for (int t = 0; t < words; ++t) s += __popc(__ldg(p + t) ^ q[t]);
+  return s;
 }
 
 // The slot of the best unexpanded key (< key_inf, <= beam[ef-1]), or -1:

@@ -57,38 +57,11 @@ constexpr int kMaxW = 128;
 constexpr int kMaxWords = 64;
 constexpr int kWarps = 4;  // queries per block
 
-// Hamming distance of the point at `p` to the query `q` (shared memory).
-// words % 4 == 0: 16-byte loads, eight issued before the first use;
-// otherwise one 4-byte load per word.
-__device__ __forceinline__ int point_distance(const int* __restrict__ p,
-                                              const int* q, int words) {
-  int s = 0;
-  if ((words & 3) == 0) {
-    const int4* p4 = reinterpret_cast<const int4*>(p);
-    const int4* q4 = reinterpret_cast<const int4*>(q);
-    const int n4 = words >> 2;
-    for (int c0 = 0; c0 < n4; c0 += 8) {
-      int4 v[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        if (c0 + c < n4) v[c] = __ldg(p4 + c0 + c);
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        if (c0 + c < n4) {
-          const int4 w = q4[c0 + c];
-          s += __popc(v[c].x ^ w.x) + __popc(v[c].y ^ w.y) +
-               __popc(v[c].z ^ w.z) + __popc(v[c].w ^ w.w);
-        }
-    }
-    return s;
-  }
-  for (int t = 0; t < words; ++t) s += __popc(__ldg(p + t) ^ q[t]);
-  return s;
-}
-
 // At most 64 registers up to two slots: 32 warps per SM, so a 4096-search
-// build chunk runs in one wave on 132 SMs.
-template <int CAP, int SLOTS>
+// build chunk runs in one wave on 132 SMs. The two-slot instances spill at
+// 64 (80-96 B of stack); 80 registers end that but leave 24 warps per SM
+// and two waves, measured 17% slower on the H100 (PERF.md).
+template <int CAP, int SLOTS, bool SEEDS>
 __global__ void __launch_bounds__(kWarps * 32, SLOTS <= 2 ? 8 : 4)
 dma_beam_search_kernel(const int* __restrict__ queries, int words,
                        const long long* __restrict__ init_keys, int E,
@@ -118,6 +91,13 @@ dma_beam_search_kernel(const int* __restrict__ queries, int words,
     s_q[warp][t] = queries[(size_t)b * words + t];
   int visited = beam::load_seeds(sm, init_keys + (size_t)b * E, E, ef, lane);
   __syncwarp();
+  // SEEDS (E > 1): repeated seed ids go before the first step, which
+  // expands slot 0 where it holds a key, as the plain merge drops them at
+  // that step. One-seed instances carry none of this code.
+  if constexpr (SEEDS) {
+    if (max_steps > 0 && sm.key[0][0] < kKeyInf)
+      beam::drop_repeated_seeds<CAP>(sm.key[0], E, ef, lane);
+  }
 
   // hint: the frontier slot the last merge found (-1: none), -2: scan
   // tombs: erased set slots since the last rebuild (S: rebuild first)
@@ -129,8 +109,6 @@ dma_beam_search_kernel(const int* __restrict__ queries, int words,
     const int pos = hint == -2 ? beam::frontier(bk, bf, ef, lane) : hint;
     if (pos < 0) break;
     ++steps;
-    if (steps == 1 && E > 1)
-      beam::drop_repeated_seeds<CAP>(sm.key[cur], E, ef, lane);
     const int e = min(max(key_id(bk[pos]), 0), cap - 1);
     const int* row = adj + (size_t)e * W;
     int nid[SLOTS];
@@ -182,7 +160,8 @@ dma_beam_search_kernel(const int* __restrict__ queries, int words,
         const int g = min(id, cap - 1);
         int r = node_map ? __ldg(node_map + g) : g;
         r = min(max(r, 0), n_pts - 1);
-        const int d = point_distance(points + (size_t)r * words, q, words);
+        const int d =
+            beam::point_distance(points + (size_t)r * words, q, words);
         key[t] = (static_cast<long long>(d) << 32) | id;
       }
     }
@@ -218,11 +197,11 @@ struct Args {
   int B, ef, max_steps;
 };
 
-// Launches the instance (CAP, SLOTS) on `stream`, or with stream == null
-// and `warps` set, only reports its resident warps per SM.
-template <int CAP, int SLOTS>
+// Launches the instance (CAP, SLOTS, SEEDS) on `stream`, or with `warps`
+// set, only reports its resident warps per SM.
+template <int CAP, int SLOTS, bool SEEDS>
 void run(const Args& a, cudaStream_t stream, int* warps) {
-  const auto kernel = dma_beam_search_kernel<CAP, SLOTS>;
+  const auto kernel = dma_beam_search_kernel<CAP, SLOTS, SEEDS>;
   if (warps) {
     int blocks = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
@@ -237,21 +216,29 @@ void run(const Args& a, cudaStream_t stream, int* warps) {
       a.max_steps);
 }
 
-template <int CAP>
+template <int CAP, bool SEEDS>
 void run_slots(const Args& a, cudaStream_t stream, int* warps) {
   switch ((a.W + 31) / 32) {  // row slots of 32: the build's W are 24, 64
-    case 1: run<CAP, 1>(a, stream, warps); break;
-    case 2: run<CAP, 2>(a, stream, warps); break;
-    case 3: run<CAP, 3>(a, stream, warps); break;
-    default: run<CAP, 4>(a, stream, warps); break;
+    case 1: run<CAP, 1, SEEDS>(a, stream, warps); break;
+    case 2: run<CAP, 2, SEEDS>(a, stream, warps); break;
+    case 3: run<CAP, 3, SEEDS>(a, stream, warps); break;
+    default: run<CAP, 4, SEEDS>(a, stream, warps); break;
   }
 }
 
-void dispatch(const Args& a, cudaStream_t stream, int* warps) {
+template <bool SEEDS>
+void run_caps(const Args& a, cudaStream_t stream, int* warps) {
   if (a.ef <= 64)
-    run_slots<64>(a, stream, warps);
+    run_slots<64, SEEDS>(a, stream, warps);
   else
-    run_slots<128>(a, stream, warps);
+    run_slots<128, SEEDS>(a, stream, warps);
+}
+
+void dispatch(const Args& a, cudaStream_t stream, int* warps) {
+  if (a.E > 1)
+    run_caps<true>(a, stream, warps);
+  else
+    run_caps<false>(a, stream, warps);
 }
 
 }  // namespace
@@ -290,7 +277,7 @@ int hnsw_dma_beam_search(const void* queries, int words, const void* init_keys,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident warps per SM of the instance that serves (ef, W).
+// Resident warps per SM of the one-seed instance that serves (ef, W).
 int hnsw_dma_beam_search_warps(int ef, int W) {
   Args a{};
   a.ef = ef;

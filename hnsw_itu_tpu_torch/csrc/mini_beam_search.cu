@@ -95,9 +95,16 @@ __device__ __forceinline__ int prefix_distance(const int* __restrict__ p,
   return s;
 }
 
-// At most 64 registers up to two slots: 32 resident warps per SM.
-template <int CAP, int SLOTS>
-__global__ void __launch_bounds__(kWarps * 32, SLOTS <= 2 ? 8 : 4)
+// Registers: the one-slot capacity-64 instance fits in 64 (32 resident
+// warps per SM); the other one- and two-slot instances spill at 64 (56-88
+// B of stack) and take 80, spill-free, at 24 warps per SM: on the H100,
+// 16-22% faster at 10k queries, which run in several waves either way
+// (PERF.md). Three and four slots take up to 128 (16 warps).
+template <int CAP, int SLOTS, bool SEEDS>
+__global__ void __launch_bounds__(kWarps * 32,
+                                  SLOTS == 1 && CAP == 64 ? 8
+                                  : SLOTS <= 2            ? 6
+                                                          : 4)
 mini_beam_search_kernel(const int* __restrict__ queries, int words,
                         const long long* __restrict__ init_keys, int E,
                         const int* __restrict__ table,
@@ -129,6 +136,13 @@ mini_beam_search_kernel(const int* __restrict__ queries, int words,
       (lane >= 1 && lane < mv) ? queries[(size_t)b * words + lane - 1] : 0;
   int visited = beam::load_seeds(sm, init_keys + (size_t)b * E, E, ef, lane);
   __syncwarp();
+  // SEEDS (E > 1): repeated seed ids go before the first step, which
+  // expands slot 0 where it holds a key, as the plain merge drops them at
+  // that step. One-seed instances carry none of this code.
+  if constexpr (SEEDS) {
+    if (max_steps > 0 && sm.key[0][0] < kKeyInf)
+      beam::drop_repeated_seeds<CAP>(sm.key[0], E, ef, lane);
+  }
 
   // hint: the frontier slot the last merge found (-1: none), -2: scan
   // tombs: erased set slots since the last rebuild (S: rebuild first)
@@ -140,8 +154,6 @@ mini_beam_search_kernel(const int* __restrict__ queries, int words,
     const int pos = hint == -2 ? beam::frontier(bk, bf, ef, lane) : hint;
     if (pos < 0) break;
     ++steps;
-    if (steps == 1 && E > 1)
-      beam::drop_repeated_seeds<CAP>(sm.key[cur], E, ef, lane);
     int e = key_id(bk[pos]);
     if (tie_bits) e = tie_code(min(max(e, 0), id_cap), tie_bits);
     e = min(max(e, 0), cap - 1);
@@ -224,11 +236,11 @@ struct Args {
   int B, cap, W, mv, ef, tie_bits, max_steps;
 };
 
-// Launches the instance (CAP, SLOTS) on `stream`, or with `warps` set, only
-// reports its resident warps per SM.
-template <int CAP, int SLOTS>
+// Launches the instance (CAP, SLOTS, SEEDS) on `stream`, or with `warps`
+// set, only reports its resident warps per SM.
+template <int CAP, int SLOTS, bool SEEDS>
 void run(const Args& a, cudaStream_t stream, int* warps) {
-  const auto kernel = mini_beam_search_kernel<CAP, SLOTS>;
+  const auto kernel = mini_beam_search_kernel<CAP, SLOTS, SEEDS>;
   if (warps) {
     int blocks = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
@@ -243,21 +255,29 @@ void run(const Args& a, cudaStream_t stream, int* warps) {
       a.max_steps);
 }
 
-template <int CAP>
+template <int CAP, bool SEEDS>
 void run_slots(const Args& a, cudaStream_t stream, int* warps) {
   switch ((a.W + 31) / 32) {  // row slots of 32
-    case 1: run<CAP, 1>(a, stream, warps); break;
-    case 2: run<CAP, 2>(a, stream, warps); break;
-    case 3: run<CAP, 3>(a, stream, warps); break;
-    default: run<CAP, 4>(a, stream, warps); break;
+    case 1: run<CAP, 1, SEEDS>(a, stream, warps); break;
+    case 2: run<CAP, 2, SEEDS>(a, stream, warps); break;
+    case 3: run<CAP, 3, SEEDS>(a, stream, warps); break;
+    default: run<CAP, 4, SEEDS>(a, stream, warps); break;
   }
 }
 
-void dispatch(const Args& a, cudaStream_t stream, int* warps) {
+template <bool SEEDS>
+void run_caps(const Args& a, cudaStream_t stream, int* warps) {
   if (a.ef <= 64)
-    run_slots<64>(a, stream, warps);
+    run_slots<64, SEEDS>(a, stream, warps);
   else
-    run_slots<128>(a, stream, warps);
+    run_slots<128, SEEDS>(a, stream, warps);
+}
+
+void dispatch(const Args& a, cudaStream_t stream, int* warps) {
+  if (a.E > 1)
+    run_caps<true>(a, stream, warps);
+  else
+    run_caps<false>(a, stream, warps);
 }
 
 }  // namespace
@@ -290,7 +310,7 @@ int hnsw_mini_beam_search(const void* queries, int words,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident warps per SM of the instance that serves (ef, W).
+// Resident warps per SM of the one-seed instance that serves (ef, W).
 int hnsw_mini_beam_search_warps(int ef, int W) {
   Args a{};
   a.ef = ef;

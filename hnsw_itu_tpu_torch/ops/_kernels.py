@@ -127,7 +127,7 @@ _ENTRIES = {
 KERNELS = tuple(_ENTRIES)
 # the beam kernels also export hnsw_<name>_warps(ef, W): the resident warps
 # per SM of the instance that serves (ef, W)
-_BEAM = ("mini_beam_search", "dma_beam_search")
+_BEAM = ("fused_beam_search", "mini_beam_search", "dma_beam_search")
 
 
 def _load(name: str) -> ctypes.CDLL:

@@ -26,6 +26,21 @@ MINI_EDGES = [("full", 1024, 128, 96, 1, 7, 0),
               ("random", 256, 64, 1, 1, 7, 0),
               ("random", 256, 64, 128, 128, 7, 8),
               ("full", 256, 128, 128, 128, 31, 0)]
+# (kind, cap, W, ef, id_bits, max_steps) of the fused kernel's edge cases;
+# the kinds are fused_edge_inputs'. id_bits 25 clamps distances to 62 and
+# 30 to 0, so on random sketches every key of a row shares the clamped
+# distance and the ids alone order them
+FUSED_EDGES = [("full", 1024, 128, 96, 10, 256),
+               ("full", 256, 128, 128, 8, 256),
+               ("random", 256, 24, 48, 8, 256),
+               ("one_id", 256, 64, 32, 8, 256),
+               ("random", 256, 64, 1, 8, 256),
+               ("resketch", 256, 32, 48, 8, 256),
+               ("random", 256, 32, 64, 25, 256),
+               ("random", 256, 64, 128, 30, 256),
+               ("top_id", 256, 32, 32, 25, 256),
+               ("top_id", 64, 16, 128, 30, 256),
+               ("random", 256, 32, 32, 8, 0)]
 # (W, ef, seeds, distinct ids among them, tie_bits of the mini kernel) of
 # the repeated-seed cases: a sampled entry over fewer points than its
 # sample gives a query the same seed more than once
@@ -102,3 +117,39 @@ def repeated_seed_inputs(w, E, distinct, cap=256, B=32, words=32):
         seeds[b] = rng.permutation(np.concatenate(
             [pool, rng.choice(pool, size=E - distinct)]))
     return pts, adj, qs, seeds
+
+
+def fused_table(pts, adj):
+    """numpy (ids int32[cap, W], data uint32[cap, W, words]) of the fused
+    table of ``adj`` as materialize_fused lays it out, at adj's own width
+    W (not padded to a power of two): neighbor j's sketch at data[e, j],
+    points clamped into range, zeros for absent edges."""
+    ids = adj.astype(np.int32)
+    data = pts[np.clip(ids, 0, len(pts) - 1)]
+    return ids, np.where((ids >= 0)[..., None], data, 0).astype(np.uint32)
+
+
+def fused_edge_inputs(kind, cap, w, id_bits, B=32, words=32):
+    """numpy (points, ids, data, queries uint32[B, words], entry ids
+    int32[B]) of one fused edge case: edge_graph's ``full``, ``one_id`` and
+    random rows, or ``resketch`` rows whose column w/2 repeats column 0's id
+    with another sketch (a table no builder makes: the two keys differ, and
+    both stay), or ``top_id`` rows where a quarter of the entries are ids
+    2^id_bits - 1 - k, k < 4, with the last point's sketch (at k = 0 and
+    the clamped distance the key is key_inf - 1; the ids lie past the
+    table's rows, so an expansion reads row cap - 1, as the plain search
+    clamps it)."""
+    rng = np.random.default_rng(sum(map(ord, kind)) + cap + w + id_bits)
+    pts, adj, live = edge_graph(rng, "random" if kind in (
+        "resketch", "top_id") else kind, cap, w, words)
+    if kind == "top_id":
+        top = rng.random(adj.shape) < 0.25
+        adj[top] = (2**id_bits - 1) - rng.integers(0, 4, size=int(top.sum()))
+    ids, data = fused_table(pts, adj)
+    if kind == "resketch":
+        h = w // 2
+        ids[:, h] = ids[:, 0]
+        data[:, h] = rng.integers(0, 2**32, size=(cap, words),
+                                  dtype=np.uint32)
+    qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
+    return pts, ids, data, qs, rng.choice(live, size=B).astype(np.int32)

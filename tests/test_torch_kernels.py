@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card,
 bit-exact (tolerance 0): the fused kernel (keys, visited, steps) for the
-seven (W, ef) pairs of the JAX kernel's contract and the clamped-key case;
+seven (W, ef) pairs of the JAX kernel's contract, the clamped-key case,
+the other sketch widths and its edge cases (full, narrow, one-id and
+re-sketched rows, keys at the clamp of id_bits 25 and 30, ids at
+2^id_bits - 1, ef 1 and 128, max_steps 0);
 the mini kernel (d, ids, visited, steps) at beam capacity 64 and 128, with
 several seeds, with tie_bits, and on a table past 2^21 rows; the gather
 beam search (keys, visited, steps) across W, ef, seeds, a node map and
@@ -26,7 +29,8 @@ import torch
 from hnsw_itu_tpu_torch.ops import _kernels
 from hnsw_itu_tpu_torch.ops.dma_search import (dma_beam_search,
                                                dma_beam_search_plain)
-from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
+from hnsw_itu_tpu_torch.ops.fused_search import (FusedTable,
+                                                 fused_beam_search,
                                                  key_clamp,
                                                  materialize_fused)
 from hnsw_itu_tpu_torch.ops.hamming import hamming_block, hamming_block_plain
@@ -35,8 +39,9 @@ from hnsw_itu_tpu_torch.ops.mini_search import (materialize_mini,
                                                 mini_beam_search,
                                                 mini_beam_search_plain)
 from hnsw_itu_tpu_torch.ops.search import beam_search_packed
-from hnsw_itu_tpu_torch.testing import (GATHER_EDGES, MINI_EDGES,
-                                       REPEATED_SEEDS, edge_inputs,
+from hnsw_itu_tpu_torch.testing import (FUSED_EDGES, GATHER_EDGES,
+                                       MINI_EDGES, REPEATED_SEEDS,
+                                       edge_inputs, fused_edge_inputs,
                                        random_graph, repeated_seed_inputs)
 
 # (W, ef) pairs of the JAX kernel's contract (tests/test_pallas_search.py)
@@ -126,6 +131,33 @@ def test_kernel_other_sketch_widths(cuda_device, words):
                                   cuda_device)
     _kernel_vs_plain(table, q, init, ef=ef, id_bits=id_bits,
                      max_d=words * 32, max_steps=64)
+
+
+def fused_edge_tensors(pts, ids, data, qs, eps, id_bits, dev):
+    """Card tensors (table, queries, init keys) of one fused edge case:
+    each query enters at its own id, its distance clamped into the key."""
+    p, q = as_sketches(pts, dev), as_sketches(qs, dev)
+    table = FusedTable(ids=torch.from_numpy(ids).to(dev),
+                       data=as_sketches(data, dev))
+    e = torch.from_numpy(eps).to(dev)
+    d0 = popcount_sum(q ^ p[e.long()])
+    max_d = key_clamp(id_bits, q.shape[1] * 32)
+    return table, q, (d0.clamp(max=max_d) << id_bits) | e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,cap,w,ef,id_bits,max_steps", FUSED_EDGES)
+def test_fused_kernel_edges(cuda_device, kind, cap, w, ef, id_bits,
+                            max_steps):
+    """W 128 full rows and W 24, rows all fresh or one id throughout, a
+    row repeating an id with another sketch (both keys stay), distances
+    at the clamp of id_bits 25 and 30, ids at 2^id_bits - 1, ef 1 and 128,
+    max_steps 0."""
+    table, q, init = fused_edge_tensors(
+        *fused_edge_inputs(kind, cap, w, id_bits), id_bits, cuda_device)
+    assert table.width == w
+    _kernel_vs_plain(table, q, init, ef=ef, id_bits=id_bits,
+                     max_d=q.shape[1] * 32, max_steps=max_steps)
 
 
 def _mini_vs_plain(table, q, d0, s, **kw):

@@ -9,13 +9,15 @@ import numpy as np
 import pytest
 import torch
 
-from hnsw_itu_tpu.ops.metrics import get_metric
+from hnsw_itu_tpu.ops.metrics import Hamming, get_metric
 from hnsw_itu_tpu.ops.search import batched_beam_search
-from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
+from hnsw_itu_tpu_torch.ops.fused_search import (FusedTable,
+                                                 fused_beam_search,
                                                  fused_width, key_clamp,
                                                  materialize_fused)
 from hnsw_itu_tpu_torch.ops.metrics import as_sketches
 from hnsw_itu_tpu_torch.ops.search import beam_search_packed
+from hnsw_itu_tpu_torch.testing import FUSED_EDGES, fused_edge_inputs
 from test_torch_kernels import PAIRS, fused_inputs, random_graph
 
 INT32_MAX = np.iinfo(np.int32).max
@@ -150,3 +152,60 @@ def test_fused_rejects_bad_inputs():
     with pytest.raises(ValueError):
         fused_beam_search(table, q, init, ef=8, id_bits=3, max_d=1024)
 
+
+
+class _ClampedHamming(Hamming):
+    """Hamming distance clamped to ``clamp``, with ``clamp`` as its static
+    bound: the JAX packed beam search then packs (d << id_bits) | id with
+    the fused kernel's distance clamp."""
+
+    def __init__(self, clamp):
+        super().__init__()
+        object.__setattr__(self, "clamp", clamp)
+
+    def max_distance(self, q):
+        return self.clamp
+
+    def one_to_many(self, q, pts):
+        return jnp.minimum(super().one_to_many(q, pts), self.clamp)
+
+
+@pytest.mark.parametrize("kind,cap,w,ef,id_bits,max_steps", FUSED_EDGES)
+def test_plain_matches_xla_packed_edges(kind, cap, w, ef, id_bits,
+                                        max_steps):
+    """The fused kernel's edge cases (hnsw_itu_tpu_torch/testing.py): the
+    plain version against the JAX packed beam search fed the same table's
+    rows through ``get_nbr_pts``, as the JAX fused path feeds it, with
+    capacity 2^id_bits and the distances clamped as the kernel clamps
+    them. Tolerance 0 in distances, ids, visited and steps; in the
+    ``resketch`` case a row repeats an id with another sketch, and both
+    keys stay."""
+    pts, ids, data, qs, eps = fused_edge_inputs(kind, cap, w, id_bits)
+    words = qs.shape[1]
+    max_d = key_clamp(id_bits, words * 32)
+    data_j = jnp.asarray(data)
+    pts_j = jnp.asarray(pts)
+    ref = batched_beam_search(
+        lambda i: pts_j[i], jnp.asarray(ids), jnp.asarray(qs),
+        jnp.asarray(eps), ef=ef, metric=_ClampedHamming(max_d),
+        capacity=1 << id_bits, expand=1, max_steps=max_steps, dedup="beam",
+        get_nbr_pts=lambda i: data_j[i],
+    )
+
+    table = FusedTable(ids=torch.from_numpy(ids),
+                       data=as_sketches(data, "cpu"))
+    q = as_sketches(qs, "cpu")
+    d0 = (torch.from_numpy(np.unpackbits(
+        (qs ^ pts[eps]).view(np.uint8), axis=-1).sum(-1)).to(torch.int32))
+    init = (d0.clamp(max=max_d) << id_bits) | torch.from_numpy(eps)
+    keys, vis, stp = fused_beam_search(table, q, init, ef=ef,
+                                       id_bits=id_bits, max_d=max_d,
+                                       max_steps=max_steps)
+    got_d, got_i = _decode(keys, id_bits, max_d)
+    np.testing.assert_array_equal(got_d, np.asarray(ref.dists))
+    np.testing.assert_array_equal(got_i, np.asarray(ref.ids))
+    np.testing.assert_array_equal(vis.numpy(), np.asarray(ref.visited))
+    np.testing.assert_array_equal(stp.numpy(), np.asarray(ref.steps))
+    if kind == "resketch":  # some beam holds one id under two keys
+        assert any(len(set(r[r < INT32_MAX])) < int((r < INT32_MAX).sum())
+                   for r in got_i)
