@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's query paths and its batched build once on one
+"""Drive the PyTorch port's query paths and its batched builds once on one
 NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--n 100000] [--nq 10000] [--mini-n 2200000]
-                          [--build-n 1000000]
+                          [--build-n 1000000] [--cli-n 1000000]
 
 Run from the root of a checkout. Phases, each printed as it ends:
 
@@ -45,7 +45,8 @@ Run from the root of a checkout. Phases, each printed as it ends:
      best of 3, recall@10 >= 0.93; then ef=96 (beam capacity 128) and one
      call with 4 entry seeds, a one-hop rerank of 8 and the bit-reversed
      tie order; the mini kernel launched at both capacities and the plain
-     version never called;
+     version never called; then recall@10 at ef=32 and 64 with a
+     65,536-point entry sample (the JAX package's own 2M run's);
   8. mini kernel against the plain version at the slice shapes: every
      query at ef=32 and ef=96, and with 4 seeds and tie_bits; both timed,
      its resident warps, both byte counts of its bound (whole rows, and
@@ -69,7 +70,29 @@ Run from the root of a checkout. Phases, each printed as it ends:
      table, knns at k=10, ef=32, max_steps auto; best of 3,
      recall@10 >= 0.93, the fused kernel's launches in those calls (the
      plain version never called); then the kernel against its plain
-     version on every query at those shapes, both timed, with the bound.
+     version on every query at those shapes, both timed, with the bound;
+ 12. the JAX CLI's query command at its defaults, on build_n points (the
+     data of phase 9): HNSWBuilder.extend_batched at efc=96, m=24, M=256,
+     the other IndexOptions at their defaults (a 50k native warmup,
+     16384-row chunks), every search on the general beam search (rows 256
+     wide: kernel #6 is never launched) and the select and prune blocks
+     on the Hamming block kernel; host and device seconds apart, CUDA-event
+     build phases, level sizes, edge drops, the kernels' launches and plain
+     calls; then enable_inline() and knns at k=10, ef=96 with no entry
+     sample (the greedy descent, then the general base search): warm run,
+     best of 3, recall@10 >= 0.93, visited and steps per query, the route,
+     the descent and the base search timed apart, and the same call on
+     CPU copies of the index for 256 queries, dists/ids/visited/steps
+     equal;
+ 13. the greedy descent (query_entry_sample 0) on the M=64 indexes: on the
+     100k index of phase 5 (run before it is freed) and the 1M index of
+     phase 11, knns at k=10, ef=32: recall@10 >= 0.93, the gather kernel
+     launched for the descent and the fused kernel for the base, neither
+     plain version called; every level's descent launch against its plain
+     version, the entries equal to greedy_search's, the descent and the
+     base kernel timed apart; then a 100k NSW at M=64 built on the card
+     and served through the general route and the fused path, recall@10
+     >= 0.93 on both.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero
@@ -114,14 +137,26 @@ BUILD_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
 # level sizes the JAX package's builder draws at these options: they depend
 # on the RNG alone, not on the data (BENCH_r05.json, its 1M and 100k legs)
 JAX_LEVEL_NS = {1_000_000: [41230, 1695, 78, 1], 100_000: [4183, 169, 10, 1]}
+# the JAX CLI's query command (hnsw_itu_tpu/cli.py:287-292, 446-449): efc,
+# m and M from its flags, every other IndexOptions field at its default
+CLI_OPTS = dict(ef_construction=96, connections=24, max_connections=256,
+                host_warmup=50_000)
+CLI_EF = 96  # the CLI's -e default
+PARITY_Q = 256  # queries of the CUDA-vs-CPU check of the general route
+NSW_N = 100_000  # points of the NSW phase
+# the JAX package's own 2M mini-path run used this entry sample
+# (benches/results_2m.json: recall@10 0.9703 at ef=32, 0.9833 at ef=64)
+MINI_WIDE_SAMPLE = 65_536
 # (gather-kernel case) W, ef, seeds, node map, repeated ids
 GATHER_CASES = [(32, 24, 1, False, False), (64, 48, 1, False, False),
                 (64, 96, 1, False, False), (32, 128, 1, False, False),
                 (64, 1, 1, True, False), (32, 24, 4, False, False),
                 (64, 96, 4, True, False), (64, 48, 1, True, True),
                 (32, 128, 4, True, True), (64, 96, 1, False, True)]
+# the last: a prune block of the M=256 build (prune_budget rows of 256
+# neighbors plus the spill width)
 HAM_SHAPES = [(7, 129, 32), (96, 96, 32), (130, 33, 5), (3, 72, 72, 32),
-              (17, 96, 96, 32), (5, 31, 65, 7)]
+              (17, 96, 96, 32), (5, 31, 65, 7), (256, 264, 264, 32)]
 # the ef sweep of the redesigned kernels, at a fixed expansion bound: a
 # flat time says read latency bounds them, a rising one that their
 # per-step loops still cost
@@ -275,7 +310,7 @@ def phase_build(n, nq, dev, *, cap=None, tag="3"):
 
     t0 = time.perf_counter()
     pts, qs = make_dataset(0, n, nq)
-    log(f"[9] make_dataset(0, {n}, {nq}): "
+    log(f"[{tag}] make_dataset(0, {n}, {nq}): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b = HNSWBuilder(IndexOptions(ef_construction=96, connections=24,
@@ -283,7 +318,7 @@ def phase_build(n, nq, dev, *, cap=None, tag="3"):
                                  batch_size=256, host_warmup=n), device=dev)
     b.extend_batched(pts)
     index = b.build()
-    log(f"[9] host build (native engine) of {n} points into "
+    log(f"[{tag}] host build (native engine) of {n} points into "
         f"{cap or n} rows + upload: {time.perf_counter() - t0:.1f} s, "
         f"levels {index.level_ns}, ep {index.ep}")
     return pts, qs, index
@@ -302,12 +337,12 @@ def phase_oracle(pts, qs, dev, tag="4"):
     gt = bf.build().knns(qs, K)
     torch.cuda.synchronize()
     gt_d, gt_i = gt.dists.cpu().numpy(), gt.ids.cpu().numpy()
-    log(f"[9] oracle on the card: {time.perf_counter() - t0:.2f} s "
+    log(f"[{tag}] oracle on the card: {time.perf_counter() - t0:.2f} s "
         f"for {len(qs)} x {len(pts)}")
     d_host, _ = native.host_bruteforce(pts, "hamming", qs[:256], K)
     if not np.array_equal(gt_d[:256], d_host):
         raise AssertionError("oracle distances != native host scan")
-    log(f"[9] oracle distances equal the native host scan on 256 "
+    log(f"[{tag}] oracle distances equal the native host scan on 256 "
         "queries")
     return gt_i
 
@@ -751,6 +786,16 @@ def phase_mini_query(index, qs, gt_i, dev):
         f"{rec:.4f}, visited/q {vis:.1f}, steps/q {steps:.2f}")
     index.query_entry_beams, index.query_hop = 1, 0
     index.query_tie = "auto"
+    # ROADMAP §3: the entry sample of the JAX package's own 2M mini run
+    index.query_entry_sample = MINI_WIDE_SAMPLE
+    out["wide_sample"] = {}
+    for ef in (32, 64):
+        rec, vis, steps = run(ef)
+        out["wide_sample"][ef] = rec
+        log(f"[7] knns ef={ef} with a {MINI_WIDE_SAMPLE}-point entry "
+            f"sample: recall@10 {rec:.4f}, visited/q {vis:.1f}, steps/q "
+            f"{steps:.2f}")
+    index.query_entry_sample = SAMPLE
     return out
 
 
@@ -939,6 +984,37 @@ def mxu_block(a, b):
         - 2 * dots
 
 
+def hamming_vs_plain(x, what, smi, tag):
+    """Kernel #7 on the block ``x`` [P, C, words] against itself (as the
+    build's select and prune blocks run it), held against its plain
+    version (max |diff| must be 0) and timed with its bound: the larger of
+    the popcounts at the card's __popc rate and one read of ``x`` plus one
+    write of the [P, C, C] result at HBM's rate."""
+    from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
+                                                hamming_block_plain)
+
+    got = hamming_block(x, x)
+    err = max_abs_diff((got,), (hamming_block_plain(x, x),))
+    log(f"[{tag}] hamming block {tuple(got.shape)} ({what}): kernel vs "
+        f"plain max |diff| {err}")
+    if err:
+        raise AssertionError(f"hamming kernel != plain at {tuple(x.shape)}")
+    k_ms = cuda_ms(lambda: hamming_block(x, x), 10)
+    p_ms = cuda_ms(lambda: hamming_block_plain(x, x), 2)
+    P, C, words = x.shape
+    pops = P * C * C * words
+    nbytes = x.numel() * 4 + got.numel() * 4  # one input (a is b)
+    ops_ms, mem_ms = pops / POPC_PER_S * 1e3, bound_ms(nbytes)
+    by = "operations" if ops_ms >= mem_ms else "bytes"
+    log(f"[{tag}] on {smi}: hamming block {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms; {pops:.3e} popcounts = {ops_ms:.4f} ms at "
+        f"{POPC_PER_S:.3e}/s, {nbytes / 1e9:.4f} GB = {mem_ms:.4f} ms: "
+        f"bound {max(ops_ms, mem_ms):.4f} ms by {by}")
+    return {"shape": list(got.shape), "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(ops_ms, mem_ms),
+            "bound_by": by}
+
+
 def phase_build_kernels(index, qs, dev, smi):
     """The two build kernels against their plain versions at the build's
     shapes, on the finished index: one chunk of searches (ef = efc, seeded
@@ -950,8 +1026,7 @@ def phase_build_kernels(index, qs, dev, smi):
     from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
     from hnsw_itu_tpu_torch.ops.entry import sampled_entry
-    from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
-                                                hamming_block_plain)
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
     from hnsw_itu_tpu_torch.ops.metrics import (HAMMING, as_sketches,
                                                 popcount_sum)
     from hnsw_itu_tpu_torch.ops.mini_search import IINF
@@ -1016,27 +1091,12 @@ def phase_build_kernels(index, qs, dev, smi):
     # the select blocks of those beams: [B, efc, efc]
     bi = (keys & 0xFFFFFFFF).to(torch.int32)
     cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
-    got7 = hamming_block(cand, cand)
-    err7 = max_abs_diff((got7,), (hamming_block_plain(cand, cand),))
-    log(f"[10] hamming block {tuple(got7.shape)} (select, one chunk): kernel "
-        f"vs plain max |diff| {err7}")
-    if err7:
-        raise AssertionError("hamming kernel != plain at the select shape")
-    k7 = cuda_ms(lambda: hamming_block(cand, cand), 10)
-    p7 = cuda_ms(lambda: hamming_block_plain(cand, cand), 2)
+    ham = hamming_vs_plain(cand, "select, one chunk", smi, "10")
     l7 = cuda_ms(lambda: mxu_block(cand, cand), 10)
-    if max_abs_diff((mxu_block(cand, cand),), (got7,)):
+    if max_abs_diff((mxu_block(cand, cand),), (hamming_block(cand, cand),)):
         raise AssertionError("pairwise_mxu route != hamming block")
-    pops7 = B * efc * efc * words
-    nbytes7 = cand.numel() * 4 + got7.numel() * 4  # one input (a is b)
-    ops7_ms = pops7 / POPC_PER_S * 1e3
-    b7 = max(ops7_ms, bound_ms(nbytes7))
-    by7 = "operations" if ops7_ms >= bound_ms(nbytes7) else "bytes"
-    log(f"[10] on {smi}: hamming block {k7:.3f} ms, plain {p7:.3f} ms, "
-        f"pairwise_mxu route (unpack + float32 torch.matmul) {l7:.3f} ms; "
-        f"{pops7:.3e} popcounts = {ops7_ms:.4f} ms at {POPC_PER_S:.3e}/s, "
-        f"{nbytes7 / 1e9:.4f} GB = {bound_ms(nbytes7):.4f} ms: bound "
-        f"{b7:.4f} ms by {by7}")
+    log(f"[10] on {smi}: pairwise_mxu route (unpack + float32 "
+        f"torch.matmul) {l7:.3f} ms at the same block")
 
     # the sampled entry's shape: every query against the 1024-point sample
     qe = as_sketches(qs, dev)
@@ -1052,9 +1112,8 @@ def phase_build_kernels(index, qs, dev, smi):
         "pairwise_mxu)")
     return {
         "dma": dma,
-        "ham": {"max_abs_err": err7, "ms": k7, "plain_ms": p7,
-                "bound_ms": b7, "library_ms": l7, "bound_by": by7,
-                "entry_ms": ke, "entry_mxu_ms": le},
+        "ham": {**ham, "library_ms": l7, "entry_ms": ke,
+                "entry_mxu_ms": le},
     }
 
 
@@ -1115,7 +1174,410 @@ def phase_build_query(index, pts, qs, dev, smi):
                                     max_steps=index._steps_cap(EF))
     del kernel["entry"]
     return {"recall": rec, "knns_ms": best * 1e3, "launches": launches,
-            "kernel": kernel}
+            "kernel": kernel, "gt_i": gt_i}
+
+
+def gather_bytes(rows, fresh, B, W, words, ef):
+    """Bytes a gather search must move: each expansion's W ids, each fresh
+    neighbor's sketch, queries and seeds in, keys and counts out."""
+    return (rows * W * 4 + fresh * words * 4 + B * words * 4 + B * 8
+            + B * ef * 8 + B * 8)
+
+
+def greedy_descent(index, q, steps):
+    """The reference descent: ``greedy_search`` (the general ef=1 beam
+    search, bitmask dedup) on every level, top to bottom, following
+    ``down``. Returns the base-layer entries int32[B]."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.search import greedy_search
+
+    eps = torch.full((q.shape[0],), index.ep, dtype=torch.int32,
+                     device=q.device)
+    for lv in reversed(index.levels):
+        cap_l = lv.graph.adj.shape[0]
+        _, best = greedy_search(
+            lambda ids, ni=lv.node_ids: index.points[ni[ids].long()],
+            lv.graph.adj, q, eps, metric=index.metric, capacity=cap_l,
+            max_steps=steps)
+        eps = lv.down[best.long().clamp(0, cap_l - 1)]
+    return eps
+
+
+def descent_on_kernel(index, q, dev, tag):
+    """The greedy descent of ``index`` for queries ``q`` level by level on
+    kernel #6 at ef=1, each level's launch held against its plain version
+    (keys/visited/steps equal) and timed apart; the entries equal to the
+    general ``greedy_search`` descent. Returns (eps, record)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models.hnsw import descent_eps
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.metrics import popcount_sum
+    from hnsw_itu_tpu_torch.ops.search import beam_search_gather
+
+    steps = index._steps_cap(EF)
+    B, words = q.shape
+    eps = torch.full((B,), index.ep, dtype=torch.int32, device=dev)
+    err, k_ms, p_ms, nbytes = 0, 0.0, 0.0, 0
+    for lv in reversed(index.levels):
+        adj, ni = lv.graph.adj, lv.node_ids
+        d0 = popcount_sum(index.points[ni[eps.long()].long()] ^ q)
+        kw = dict(ef=1, max_steps=steps)
+        e, got = gather_vs_plain(adj, index.points, ni, q, d0, eps, **kw)
+        err = max(err, e)
+        k_ms += cuda_ms(lambda: dma_beam_search(adj, index.points, ni, q, d0,
+                                                eps, **kw), 10)
+        p_ms += cuda_ms(lambda: beam_search_gather(adj, index.points, ni, q,
+                                                   d0, eps, **kw), 1)
+        keys, vis, stp = got
+        nbytes += gather_bytes(int(stp.long().sum()),
+                               int(vis.long().sum()) - B, B,
+                               adj.shape[1], words, 1)
+        eps = lv.down[(keys[:, 0] & 0xFFFFFFFF).clamp(
+            max=adj.shape[0] - 1)]
+    want = greedy_descent(index, q, steps)
+    torch.cuda.synchronize()
+    if err or not torch.equal(eps, want):
+        raise AssertionError(f"descent on #6 (max |diff| {err}) != plain, "
+                             "or its entries != greedy_search's")
+    d_ms = cuda_ms(lambda: descent_eps(index.points, index.levels, q,
+                                       index.ep, metric=index.metric,
+                                       max_steps=steps), 10)
+    g_ms = cuda_ms(lambda: greedy_descent(index, q, steps), 2)
+    log(f"[{tag}] descent of {B} queries through {len(index.levels)} "
+        f"levels: #6 at ef=1 vs plain max |diff| {err} over keys, visited, "
+        f"steps; entries equal to greedy_search's; #6 launches "
+        f"{k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
+        f"{bound_ms(nbytes):.4f} ms); whole descent {d_ms:.3f} ms on #6, "
+        f"{g_ms:.3f} ms on the general greedy_search")
+    return eps, {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": bound_ms(nbytes), "descent_ms": d_ms,
+                 "greedy_search_ms": g_ms, "levels": len(index.levels)}
+
+
+def phase_descent(index, qs, gt_i, dev, smi, tag="13"):
+    """knns with the greedy descent (query_entry_sample = 0) on a fused
+    index: recall gate, #6 launched for the descent and the fused kernel
+    for the base, neither plain version called; then the descent and the
+    base kernel timed apart (``descent_on_kernel``; the fused kernel on
+    the descent's init keys against its plain version)."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.models.nsw import _id_bits
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.fused_search import (fused_beam_search,
+                                                     key_clamp)
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+    from hnsw_itu_tpu_torch.ops.search import beam_search_packed
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    nq = len(qs)
+    index.query_entry_sample = 0
+    index.max_steps = None
+    q = as_sketches(qs, dev)
+    dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
+    fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    index.knns(q, K, EF)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = index.knns(q, K, EF)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    counts = {"dma": dma_beam_search.kernel_launches,
+              "dma_plain": dma_beam_search.plain_calls,
+              "fused": fused_beam_search.kernel_launches,
+              "fused_plain": fused_beam_search.plain_calls}
+    ids = res.ids.cpu().numpy()
+    dists = res.dists.cpu().numpy()
+    if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
+            or not (np.diff(dists, axis=1) >= 0).all():
+        raise AssertionError(f"bad result with the descent at N={index.n}")
+    rec = recall_at_k(ids, gt_i, K)
+    log(f"[{tag}] knns k={K} ef={EF} with the greedy descent "
+        f"(query_entry_sample 0, max_steps {index._steps_cap(EF)}) at "
+        f"N={index.n}, route {index.last_route}: best of 3 "
+        f"{best * 1e3:.2f} ms for {nq} queries, recall@10 {rec:.4f}, "
+        f"visited/q {index.last_stats['visited'] / nq:.1f}, steps/q "
+        f"{index.last_stats['steps'] / nq:.2f}; launches {counts}")
+    if index.last_route != "fused" or counts["dma"] <= 0 \
+            or counts["fused"] <= 0 or counts["dma_plain"] \
+            or counts["fused_plain"]:
+        raise AssertionError(f"descent path did not run on the kernels: "
+                             f"{index.last_route} {counts}")
+    if rec < RECALL_GATE:
+        raise AssertionError(f"recall@10 {rec:.4f} < {RECALL_GATE}")
+    eps, desc = descent_on_kernel(index, q, dev, tag)
+    # the base kernel on the descent's entries, as _query_step_fused runs it
+    table = index.fused
+    id_bits = _id_bits(table.cap)
+    max_d = key_clamp(id_bits, q.shape[1] * 32)
+    d0 = popcount_sum(index.points[eps.long()] ^ q)
+    order = torch.argsort(d0, stable=True)
+    qs_o = q[order].contiguous()
+    init = ((d0[order].clamp(max=max_d) << id_bits) | eps[order]).contiguous()
+    kw = dict(ef=EF, id_bits=id_bits, max_d=max_d,
+              max_steps=index._steps_cap(EF))
+    err = max_abs_diff(fused_beam_search(table, qs_o, init, **kw),
+                       beam_search_packed(table.ids, table.data, qs_o, init,
+                                          **kw))
+    if err:
+        raise AssertionError("fused kernel != plain after the descent")
+    f_ms = cuda_ms(lambda: fused_beam_search(table, qs_o, init, **kw), 10)
+    log(f"[{tag}] on {smi}: descent {desc['descent_ms']:.3f} ms, fused "
+        f"kernel on its entries {f_ms:.3f} ms (vs plain max |diff| {err}), "
+        f"whole knns {best * 1e3:.3f} ms (host clock)")
+    desc.update(launches=counts["dma"], recall=rec, knns_ms=best * 1e3,
+                fused_ms=f_ms, fused_launches=counts["fused"],
+                n=index.n, fused_err=err)
+    return desc
+
+
+def cli_hamming_blocks(index, opts, smi):
+    """Kernel #7 at the M=256 build's own shapes on the built index, each
+    against its plain version: one select block (a full chunk of points
+    searched at ef = efc from the sampled entry, its beam in pop order, as
+    ``_build.search_select`` builds it) and one prune block (the
+    ``prune_budget`` fullest base rows plus a spill width of extra
+    candidates, in pop order, as ``graph.prune_rows`` builds it)."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.models import _build
+    from hnsw_itu_tpu_torch.ops.metrics import HAMMING
+    from hnsw_itu_tpu_torch.ops.mini_search import IINF
+    from hnsw_itu_tpu_torch.ops.select import pop_order
+
+    adj, points = index.base.adj, index.points
+    cap, words = adj.shape[0], points.shape[1]
+
+    def in_pop_order(ids, d, valid, pts):
+        perm = pop_order(d, ids, valid)[0]
+        return pts.gather(1, perm[:, :, None].expand(-1, -1, words))
+
+    S = min(opts.batch_size * 16, index.n)  # the build's steady chunk
+    chunk = points[index.n - S : index.n]
+    eps = _build.entry_step(points, chunk, index.n,
+                            sample_size=opts.entry_sample)
+    bd, bi = _build.build_search(points, None, adj, chunk, eps,
+                                 ef=opts.ef_construction)
+    sel = in_pop_order(bi, bd, bi < IINF,
+                       points[bi.clamp(0, cap - 1).long()]).contiguous()
+    P = min(opts.prune_budget, index.n)
+    nodes = torch.argsort(index.base.deg[:index.n], descending=True,
+                          stable=True)[:P]
+    extra = torch.from_numpy(np.random.default_rng(0).integers(
+        0, index.n, (P, _build.SPILL_WIDTH), dtype=np.int32)).to(adj.device)
+    ids = torch.cat([adj[nodes], extra], dim=1)
+    nbr = points[ids.clamp(0, cap - 1).long()]
+    d = HAMMING.one_to_many(points[nodes], nbr)
+    prune = in_pop_order(ids, d, ids >= 0, nbr).contiguous()
+    return {"select": hamming_vs_plain(sel, "select, one chunk", smi, "12"),
+            "prune": hamming_vs_plain(prune, "prune, one budget", smi,
+                                      "12")}
+
+
+def phase_cli_default(pts, qs, gt_i, dev, smi):
+    """Phase 12: the JAX CLI's query command at its defaults (efc=96, m=24,
+    M=256, the other IndexOptions at their defaults, enable_inline(), knns
+    at k=10, ef=96, no entry sample) on the port: the build's searches on
+    the general beam search (rows 256 wide), its select and prune blocks
+    on #7; the query on the greedy descent and the general base search."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models import _build
+    from hnsw_itu_tpu_torch.models.hnsw import HNSW, HNSWBuilder, descent_eps
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    n, nq = len(pts), len(qs)
+    opts = IndexOptions(size=n, **{**CLI_OPTS, "host_warmup": min(
+        CLI_OPTS["host_warmup"], n)})
+    b = HNSWBuilder(opts, device=dev)
+    b.timings = {}
+    warm_done = []
+
+    def progress(off):
+        if not warm_done:
+            torch.cuda.synchronize()
+            warm_done.append(time.perf_counter())
+
+    dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
+    hamming_block.kernel_launches = hamming_block.plain_calls = 0
+    t0 = time.perf_counter()
+    b.extend_batched(pts, progress=progress)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    index = b.build()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rec = {"ham_launches": hamming_block.kernel_launches,
+           "ham_plain": hamming_block.plain_calls,
+           "dma_launches": dma_beam_search.kernel_launches,
+           "dma_plain": dma_beam_search.plain_calls,
+           "host_s": warm_done[0] - t0, "device_s": t1 - warm_done[0],
+           "finish_s": t2 - t1, "level_ns": index.level_ns,
+           "edge_drops": b.total_edge_drops()}
+    log(f"[12] build of {n} points at the CLI's options, {opts}: host "
+        f"warmup {rec['host_s']:.1f} s, device chunks {rec['device_s']:.1f} "
+        f"s, build() {rec['finish_s']:.2f} s; levels {index.level_ns}, ep "
+        f"{index.ep}, total_edge_drops {rec['edge_drops']}")
+    rec["spans_ms"] = _build.span_ms(b.timings)
+    for name in ("entry", "search", "select", "apply"):
+        k = len(b.timings.get(name, ()))
+        ms = rec["spans_ms"].get(name, 0.0)
+        log(f"[12]   {name:6s} {ms:10.1f} ms over {k} spans "
+            f"({ms / max(1, k):.3f} ms each; CUDA events)")
+    log(f"[12] hamming block launches {rec['ham_launches']}, plain_calls "
+        f"{rec['ham_plain']}; gather kernel launches {rec['dma_launches']} "
+        f"(rows 256 wide: the general beam search serves every search), "
+        f"plain_calls {rec['dma_plain']}")
+    if rec["ham_launches"] <= 0 or rec["ham_plain"] or rec["dma_launches"] \
+            or rec["dma_plain"]:
+        raise AssertionError(f"the CLI build's kernel counts: {rec}")
+    rec["ham"] = cli_hamming_blocks(index, opts, smi)
+    del b
+    t0 = time.perf_counter()
+    index.enable_inline()
+    torch.cuda.synchronize()
+    log(f"[12] enable_inline() in {time.perf_counter() - t0:.2f} s: fused "
+        f"{index.fused is not None}, mini {index.mini is not None}, inline "
+        f"rows (beam dedup) {index.inline_rows}")
+    q = as_sketches(qs, dev)
+    index.knns(q, K, CLI_EF)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = index.knns(q, K, CLI_EF)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    vis_q = index.last_stats["visited_q"]
+    steps_q = index.last_stats["steps_q"]
+    if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
+            or not (np.diff(dists, axis=1) >= 0).all():
+        raise AssertionError("bad result on the CLI-default index")
+    r10 = recall_at_k(ids, gt_i, K)
+    rec.update(route=index.last_route, knns_ms=best * 1e3, recall=r10,
+               visited_q=float(vis_q.mean()), steps_q=float(steps_q.mean()))
+    log(f"[12] knns k={K} ef={CLI_EF} (query_entry_sample 0, max_steps "
+        f"{index._steps_cap(CLI_EF)}, batches of {index.query_batch}), route "
+        f"{index.last_route}: best of 3 {best * 1e3:.2f} ms for {nq} "
+        f"queries = {nq / best:,.0f} QPS, recall@10 {r10:.4f}, visited/q "
+        f"{rec['visited_q']:.1f}, steps/q {rec['steps_q']:.2f}")
+    if index.last_route != "general":
+        raise AssertionError(f"route {index.last_route}, want general")
+    if r10 < RECALL_GATE:
+        raise AssertionError(f"recall@10 {r10:.4f} < {RECALL_GATE}")
+    # where the query time goes: the descent and the base search apart
+    steps = index._steps_cap(CLI_EF)
+    Bq = index.query_batch
+    kw = dict(metric=index.metric, max_steps=steps)
+    batches = [q[s : s + Bq] for s in range(0, nq, Bq)]
+    eps = [descent_eps(index.points, index.levels, x, index.ep, **kw)
+           for x in batches]
+    rec["descent_ms"] = cuda_ms(lambda: [descent_eps(
+        index.points, index.levels, x, index.ep, **kw) for x in batches], 1)
+    rec["base_ms"] = cuda_ms(lambda: [index._query_step_general(
+        x, e, k=K, ef=CLI_EF, max_steps=steps)
+        for x, e in zip(batches, eps)], 1)
+    log(f"[12] on {smi}: descent {rec['descent_ms']:.1f} ms, general base "
+        f"search {rec['base_ms']:.1f} ms for {nq} queries (CUDA events)")
+    # device busy share of one batch: profiler device time over host time
+    one = q[:Bq]
+    t0 = time.perf_counter()
+    index.knns(one, K, CLI_EF)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, top = device_breakdown(lambda: index.knns(one, K, CLI_EF))
+    rec.update(batch_host_ms=host_ms, batch_device_ms=dev_ms)
+    log(f"[12] one batch of {len(one)} queries: {host_ms:.1f} ms host "
+        f"clock, {dev_ms:.1f} ms device time (torch.profiler, mean of 3): "
+        f"device busy {dev_ms / host_ms:.0%}; top kernels "
+        + ", ".join(f"{k[:40]} {v:.1f} ms" for k, v in top))
+    # the general route on CPU copies of the same index and queries
+    cpu = HNSW(index.points, index.n, index.base, index.levels,
+               index.level_ns, index.ep, index.metric, index.opts,
+               device="cpu")
+    cpu.inline_rows = index.inline_rows
+    t0 = time.perf_counter()
+    rc = cpu.knns(qs[:PARITY_Q], K, CLI_EF)
+    same = (np.array_equal(rc.dists.numpy(), dists[:PARITY_Q])
+            and np.array_equal(rc.ids.numpy(), ids[:PARITY_Q])
+            and np.array_equal(cpu.last_stats["visited_q"], vis_q[:PARITY_Q])
+            and np.array_equal(cpu.last_stats["steps_q"],
+                               steps_q[:PARITY_Q]))
+    log(f"[12] the same knns on CPU copies of the index, {PARITY_Q} "
+        f"queries ({time.perf_counter() - t0:.1f} s): dists, ids, visited, "
+        f"steps {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("general route on CUDA != on CPU")
+    return rec
+
+
+def phase_nsw(nq, dev):
+    """Phase 13, last part: a 100k NSW at M=64 built on the card (native
+    warmup, then device chunks on #6 and #7), served through the general
+    route (no table) and then the fused path; recall gate on both."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models.nsw import NSWBuilder
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.utils import make_dataset, recall_at_k
+
+    n = NSW_N
+    pts, qs = make_dataset(0, n, nq)
+    gt_i = phase_oracle(pts, qs, dev, tag="13")
+    for f in (dma_beam_search, hamming_block, fused_beam_search):
+        f.kernel_launches = f.plain_calls = 0
+    t0 = time.perf_counter()
+    b = NSWBuilder(IndexOptions(size=n, **BUILD_OPTS), device=dev)
+    b.extend_batched(pts)
+    index = b.build()
+    torch.cuda.synchronize()
+    rec = {"build_s": time.perf_counter() - t0,
+           "dma_launches": dma_beam_search.kernel_launches,
+           "ham_launches": hamming_block.kernel_launches,
+           "edge_drops": b.total_edge_drops()}
+    log(f"[13] NSW build of {n} points on the card ({BUILD_OPTS}): "
+        f"{rec['build_s']:.1f} s, edge drops {rec['edge_drops']}, #6 "
+        f"launches {rec['dma_launches']}, #7 launches {rec['ham_launches']}")
+    index.query_entry_sample = SAMPLE
+    q = as_sketches(qs, dev)
+    for route in ("general", "fused"):
+        if route == "fused":
+            index.enable_inline()
+        index.knns(q, K, EF)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = index.knns(q, K, EF)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        r10 = recall_at_k(res.ids.cpu().numpy(), gt_i, K)
+        rec[route] = {"recall": r10, "knns_ms": ms}
+        log(f"[13] NSW knns k={K} ef={EF} (sampled entry {SAMPLE}), route "
+            f"{index.last_route}: {ms:.2f} ms, recall@10 {r10:.4f}")
+        if index.last_route != route or r10 < RECALL_GATE:
+            raise AssertionError(f"NSW {route}: route {index.last_route}, "
+                                 f"recall@10 {r10:.4f}")
+    plain = (dma_beam_search.plain_calls, hamming_block.plain_calls,
+             fused_beam_search.plain_calls)
+    if min(rec["dma_launches"], rec["ham_launches"],
+           fused_beam_search.kernel_launches) <= 0 or any(plain):
+        raise AssertionError(f"NSW phase kernel counts: {rec}, plain {plain}")
+    return rec
 
 
 def main(argv=None) -> int:
@@ -1128,6 +1590,8 @@ def main(argv=None) -> int:
                     f"at least {MINI_CAP} rows)")
     ap.add_argument("--build-n", type=int, default=BUILD_N,
                     help="index points of the device-build phase")
+    ap.add_argument("--cli-n", type=int, default=BUILD_N,
+                    help="index points of the CLI-default phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -1166,6 +1630,8 @@ def main(argv=None) -> int:
         raise AssertionError(
             f"fused path launches {launches}, plain calls {plain}")
     fused = phase_slice_shapes(index, qs, dev, smi, knns_s)
+    # phase 13 on the 100k index: the greedy descent on #6, then #1
+    descent_100k = phase_descent(index, qs, gt_i, dev, smi)
     del pts, qs, index, gt_i
     gc.collect()
     torch.cuda.empty_cache()
@@ -1200,7 +1666,29 @@ def main(argv=None) -> int:
     pts, qs, index, build = phase_device_build(args.build_n, args.nq, dev)
     bk = phase_build_kernels(index, qs, dev, smi)
     served = phase_build_query(index, pts, qs, dev, smi)
+    gt_i = served.pop("gt_i")
+    # phase 13 on the 1M device-built index
+    descent_1m = phase_descent(index, qs, gt_i, dev, smi)
+    del index
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 12: the CLI's default path (the same data when the sizes agree)
+    if args.cli_n != args.build_n:
+        from hnsw_itu_tpu_torch.utils import make_dataset
+
+        pts, qs = make_dataset(0, args.cli_n, args.nq)
+        gt_i = phase_oracle(pts, qs, dev, tag="12")
+    cli = phase_cli_default(pts, qs, gt_i, dev, smi)
+    del pts, qs, gt_i
+    gc.collect()
+    torch.cuda.empty_cache()
+    nsw = phase_nsw(args.nq, dev)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    log("[12] record " + json.dumps({k: cli[k] for k in cli if k not in (
+        "ham_plain", "dma_plain")}))
+    log("[13] record " + json.dumps({"nsw": nsw, "descent": [
+        descent_100k, descent_1m]}))
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
         "route": "cuda",
@@ -1216,10 +1704,20 @@ def main(argv=None) -> int:
         "library_ms": None,  # no single PyTorch call runs a beam search
         **{k: fused[k] for k in ("steps_q", "visited_q", "resident_warps",
                                  "sweep")},
+        "also_replaces": ["hnsw_itu_tpu/ops/pallas_search.py:468 (#2, one "
+                          "query per row)"],
         # the device-built index's knns (phase 11): its launches, and the
         # kernel against its plain version at those shapes
         "device_built": {"launches": served["launches"],
                          **served["kernel"]},
+        # phase 13: the base kernel after the greedy descent
+        "after_descent": {
+            str(d["n"]): {"launches": d["fused_launches"],
+                          "ms": d["fused_ms"], "recall": d["recall"],
+                          "knns_ms": d["knns_ms"]}
+            for d in (descent_100k, descent_1m)},
+        "nsw": {"recall": nsw["fused"]["recall"],
+                "knns_ms": nsw["fused"]["knns_ms"]},
     }, {
         "name": "mini_beam_search",
         "route": "cuda",
@@ -1244,7 +1742,9 @@ def main(argv=None) -> int:
         "replaces": DMA_REPLACES,
         "launches": build["dma_launches"],
         "max_abs_err": max(err_small_dma, err_edge_dma,
-                           bk["dma"]["max_abs_err"]),
+                           bk["dma"]["max_abs_err"],
+                           descent_100k["max_abs_err"],
+                           descent_1m["max_abs_err"]),
         "ms": bk["dma"]["ms"],
         "plain_ms": bk["dma"]["plain_ms"],
         "bound_ms": bk["dma"]["bound_ms"],
@@ -1257,13 +1757,23 @@ def main(argv=None) -> int:
             "dma_launches", "dma_plain", "ham_launches", "ham_plain")},
         "knns_on_built_index": {k: served[k] for k in ("recall",
                                                         "knns_ms")},
+        # phase 13: the query-time greedy descent (ef=1 per level), every
+        # level's launch held against the plain version
+        "query_descent": {
+            str(d["n"]): {k: d[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "descent_ms", "greedy_search_ms", "levels")}
+            for d in (descent_100k, descent_1m)},
+        "cli_build_launches": cli["dma_launches"],  # 0: rows 256 wide
+        "nsw_build_launches": nsw["dma_launches"],
     }, {
         "name": "hamming_block",
         "route": "cuda",
         "source": HAM_SRC,
         "replaces": HAM_REPLACES,
         "launches": build["ham_launches"],
-        "max_abs_err": max(err_small_ham, bk["ham"]["max_abs_err"]),
+        "max_abs_err": max(err_small_ham, bk["ham"]["max_abs_err"],
+                           *(v["max_abs_err"] for v in cli["ham"].values())),
         "ms": bk["ham"]["ms"],
         "plain_ms": bk["ham"]["plain_ms"],
         "bound_ms": bk["ham"]["bound_ms"],
@@ -1272,6 +1782,10 @@ def main(argv=None) -> int:
         "library_ms": bk["ham"]["library_ms"],
         "entry_shape": {"ms": bk["ham"]["entry_ms"],
                         "pairwise_mxu_ms": bk["ham"]["entry_mxu_ms"]},
+        # phase 12: the select and prune blocks of the M=256 CLI build,
+        # each against its plain version at the build's own shape
+        "cli_build": {"launches": cli["ham_launches"], **cli["ham"]},
+        "nsw_build_launches": nsw["ham_launches"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,10 +15,13 @@ Rules the port follows:
 * no kernel is built at import: ``ops/_kernels.py`` compiles
   ``csrc/*.cu`` with ``nvcc`` at first use.
 
-Ported so far: the HNSW query path (sampled entry, the fused and the
-mini-table beam-search kernels, the exact reranks), the brute-force
-oracle, and the HNSW build: the native host warmup, then the batched
-device build on the gather beam-search and dense Hamming kernels.
+Ported so far: the HNSW and NSW query paths (the sampled entry or the
+greedy descent, then the fused or the mini-table beam-search kernel with
+its exact rerank, or the general beam search where no table serves), the
+brute-force oracle, the HNSW and NSW builds (the native host warmup, then
+the batched device build on the gather beam-search kernel, or the general
+beam search past its limits, and the dense Hamming kernel), and ``.npz``
+persistence of all three index kinds.
 """
 
 from .device import require_cuda

@@ -1,6 +1,7 @@
 from .base import ID_INF, IndexOptions, KnnResult, rng_seed
 from .bruteforce import Bruteforce
 from .hnsw import HNSW, HNSWBuilder
+from .nsw import NSW, NSWBuilder
 
 __all__ = [
     "ID_INF",
@@ -10,4 +11,6 @@ __all__ = [
     "Bruteforce",
     "HNSW",
     "HNSWBuilder",
+    "NSW",
+    "NSWBuilder",
 ]

@@ -10,10 +10,16 @@ deviations from the reference's sequential inserts carry over unchanged
 
 How the port differs from the JAX module, keeping its results:
 
-* The search is ``ops/dma_search.py`` (kernel ``csrc/dma_beam_search.cu``)
-  over ``adj`` and ``points``: always exact. The JAX package's inline
-  build rows (``adj_pts``, ``inline_words``) are a TPU memory layout and
-  are not kept.
+* The search is exact, over ``adj`` and ``points``, on one of two routes
+  chosen by shape before any launch (``search_route``): kernel #6
+  (``ops/dma_search.py``, ``csrc/dma_beam_search.cu``) where it serves
+  (rows up to ``MAX_WIDTH`` wide, beams up to ``MAX_EF``, sketches up to
+  ``MAX_WORDS`` words, ``expand == 1``), else the general beam search
+  (``ops/search.py`` ``batched_beam_search``, ``dedup="beam"``, the JAX
+  ``search_select`` default), which takes any width, ``ef`` and
+  ``expand``. Both compute the JAX ``search_select`` beam. The JAX
+  package's inline build rows (``adj_pts``, ``inline_words``) are a TPU
+  memory layout and are not kept.
 * A chunk's rows are searched in one launch. The JAX ``chunk_step`` maps
   over windows of S rows, but every window searches the same pre-chunk
   graph (the mutation runs after the map), so S was never semantic.
@@ -36,13 +42,16 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
-from ..graph import GraphArrays, append_reverse_edges, prune_rows, set_rows
-from ..ops.dma_search import dma_beam_search
+from ..graph import (GraphArrays, append_reverse_edges, make_graph,
+                     prune_rows, set_rows)
+from ..ops.dma_search import MAX_EF, MAX_WIDTH, MAX_WORDS, dma_beam_search
 from ..ops.entry import sampled_entry
 from ..ops.metrics import HAMMING, popcount_sum
 from ..ops.mini_search import IINF
+from ..ops.search import batched_beam_search
 from ..ops.select import select_neighbors_points
 
 # spill buffer width shared by every build path
@@ -80,8 +89,38 @@ def _rows(node_map, ids: torch.Tensor) -> torch.Tensor:
     return ids if node_map is None else node_map[ids].long()
 
 
+def search_route(adj, points, ef: int, expand: int = 1) -> str:
+    """"kernel" where kernel #6 serves a search of this shape, else
+    "general" (the general beam search)."""
+    if (adj.shape[1] <= MAX_WIDTH and ef <= MAX_EF
+            and points.shape[1] <= MAX_WORDS and expand == 1):
+        return "kernel"
+    return "general"
+
+
+def build_search(points, node_map, adj, qs, eps, *, ef: int,
+                 expand: int = 1, max_steps: int = MAX_STEPS):
+    """The build's beam search (the JAX ``search_select`` beam, ``dedup=
+    "beam"``) of each row of ``qs`` from its entry ``eps`` (graph-local)
+    on the route ``search_route`` picks: (dists int32[S, ef], ids int32[S,
+    ef] graph-local); empty slots hold ids >= ``IINF``."""
+    eps = eps.to(torch.int32)
+    if search_route(adj, points, ef, expand) == "kernel":
+        d0 = popcount_sum(points[_rows(node_map, eps)] ^ qs)
+        keys, _, _ = dma_beam_search(adj, points, node_map, qs, d0, eps,
+                                     ef=ef, max_steps=max_steps)
+        return (keys >> 32).to(torch.int32), (keys & 0xFFFFFFFF).to(
+            torch.int32)
+    res = batched_beam_search(
+        lambda ids: points[_rows(node_map, ids)], adj, qs, eps, ef=ef,
+        metric=HAMMING, capacity=adj.shape[0], expand=expand,
+        max_steps=max_steps, dedup="beam")
+    return res.dists, res.ids
+
+
 def search_select(points, node_map, adj, qs, eps, *, efc: int, m: int,
-                  max_steps: int = MAX_STEPS, timings=None):
+                  expand: int = 1, max_steps: int = MAX_STEPS,
+                  timings=None):
     """Beam-search the graph at ``ef = efc`` for each row of ``qs`` from
     its entry ``eps`` (graph-local), then diversity-select up to ``m``
     neighbors from the beam: ``search_select_neighbors``, batched. Every
@@ -91,14 +130,10 @@ def search_select(points, node_map, adj, qs, eps, *, efc: int, m: int,
     m])."""
     dev = qs.device
     cap = adj.shape[0]
-    eps = eps.to(torch.int32)
     with _span(timings, "search", dev):
-        d0 = popcount_sum(points[_rows(node_map, eps)] ^ qs)
-        keys, _, _ = dma_beam_search(adj, points, node_map, qs, d0, eps,
-                                     ef=efc, max_steps=max_steps)
+        bd, bi = build_search(points, node_map, adj, qs, eps, ef=efc,
+                              expand=expand, max_steps=max_steps)
     with _span(timings, "select", dev):
-        bd = (keys >> 32).to(torch.int32)
-        bi = (keys & 0xFFFFFFFF).to(torch.int32)
         valid = bi < IINF
         cpts = points[_rows(node_map, bi.clamp(0, cap - 1))]
         sel_ids, sel_d, _ = select_neighbors_points(cpts, bd, bi, valid, m)
@@ -213,7 +248,7 @@ def entry_step(points, qs, n: int, *, sample_size: int, timings=None):
 
 
 def chunk_step(points, node_map, graph: GraphArrays, spill, chunk, new_ids,
-               n0: int, eps=None, *, efc: int, m: int,
+               n0: int, eps=None, *, efc: int, m: int, expand: int = 1,
                max_steps: int = MAX_STEPS, prune_budget: int = 256,
                entry_sample: int = 0, use_entry: bool = False,
                timings=None):
@@ -234,14 +269,14 @@ def chunk_step(points, node_map, graph: GraphArrays, spill, chunk, new_ids,
                              timings=timings)
         eps = sampled if eps is None else torch.where(eps >= 0, eps, sampled)
     sel, _ = search_select(points, node_map, graph.adj, chunk, eps,
-                           efc=efc, m=m, max_steps=max_steps,
+                           efc=efc, m=m, expand=expand, max_steps=max_steps,
                            timings=timings)
     return apply_inserts(points, node_map, graph, new_ids, sel, spill,
                          prune_budget=prune_budget, timings=timings)
 
 
 def level_chunk_step(points, node_ids, graph: GraphArrays, down, chunk,
-                     new_loc, eps, *, efc: int, m: int,
+                     new_loc, eps, *, efc: int, m: int, expand: int = 1,
                      max_steps: int = MAX_STEPS, prune_budget: int = 256,
                      timings=None):
     """One upper-level insert group: search and select every row, drop
@@ -252,7 +287,7 @@ def level_chunk_step(points, node_ids, graph: GraphArrays, down, chunk,
     n_dropped)."""
     cap_l = graph.adj.shape[0]
     sel, _ = search_select(points, node_ids, graph.adj, chunk, eps,
-                           efc=efc, m=m, max_steps=max_steps,
+                           efc=efc, m=m, expand=expand, max_steps=max_steps,
                            timings=timings)
     # never link a node to itself (a group that seeded a brand-new layer
     # searches from its own first slot)
@@ -269,16 +304,62 @@ def level_descend_step(points, node_ids, adj, down, chunk, eps, *,
                        max_steps: int = MAX_STEPS, timings=None):
     """Greedy ef=1 descent through one level for a whole chunk, then
     follow ``down``. Select-neighbors of a one-key beam keeps that key, so
-    the beam's key is the selection."""
+    the beam's key is the selection. A one-slot beam expands one entry a
+    step whatever ``IndexOptions.expand`` asks (the JAX ``top_k`` refuses
+    E > ef there; ROADMAP §3)."""
     cap_l = adj.shape[0]
     with _span(timings, "search", chunk.device):
-        eps = eps.to(torch.int32)
-        d0 = popcount_sum(points[_rows(node_ids, eps)] ^ chunk)
-        keys, _, _ = dma_beam_search(adj, points, node_ids, chunk, d0, eps,
-                                     ef=1, max_steps=max_steps)
-    best = keys[:, 0] & 0xFFFFFFFF
+        _, best = build_search(points, node_ids, adj, chunk, eps, ef=1,
+                               max_steps=max_steps)
+    best = best[:, 0]
     best = torch.where(best < IINF, best, -1)  # the JAX select's -1
     return down[best.clamp(0, cap_l - 1)]
+
+
+def drain_spill(points, graph: GraphArrays, spill, opts, *,
+                max_passes: int = 4, timings=None) -> None:
+    """Prune-only passes on the base layer, in place, consuming leftover
+    spill entries (the JAX builders' ``_drain_spill``)."""
+    budget = min(opts.size, max(opts.prune_budget, opts.batch_size * 16))
+    none = torch.empty((0,), dtype=torch.int32, device=spill.device)
+    for _ in range(max_passes):
+        if not bool((spill[:-1] >= 0).any()):
+            break
+        apply_inserts(points, None, graph, none, none.reshape(0, 1), spill,
+                      prune_budget=budget, timings=timings)
+
+
+def grow_base(cap: int, need: int, graph: GraphArrays, spill, points):
+    """Base-layer growth past ``cap`` rows (the JAX
+    ``NSWBuilder._grow_capacity``): the next power-of-two multiple of
+    ``cap`` that holds ``need`` rows. Returns None when ``cap`` holds
+    them, else (new cap, graph, spill, points) grown; the spill buffer's
+    junk row stays last, ``points`` may be None."""
+    new = max(1, cap)
+    while new < need:
+        new *= 2
+    if new == cap:
+        return None
+    pad = new - cap
+    ext = make_graph(pad, graph.width, device=graph.adj.device)
+    graph = GraphArrays(torch.cat([graph.adj, ext.adj]),
+                        torch.cat([graph.deg, ext.deg]))
+    spill = torch.cat([spill[:-1], make_spill(pad, spill.shape[1],
+                                              device=spill.device)])
+    if points is not None:
+        points = torch.cat([points, points.new_zeros((pad,
+                                                      points.shape[1]))])
+    return new, graph, spill, points
+
+
+def as_u32(points) -> np.ndarray:
+    """Host sketches as C-contiguous uint32 (int32 bit patterns kept)."""
+    pts = np.ascontiguousarray(points)
+    if pts.dtype == np.int32:
+        pts = pts.view(np.uint32)
+    if pts.dtype != np.uint32:
+        raise TypeError(f"sketch arrays are uint32 or int32, got {pts.dtype}")
+    return pts
 
 
 def write_points(points, chunk, n: int):

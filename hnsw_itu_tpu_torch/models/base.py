@@ -25,12 +25,21 @@ class KnnResult(NamedTuple):
     ids: torch.Tensor
 
 
+def search_one(index, query, k: int, ef: int) -> KnnResult:
+    """k nearest neighbors of one query (a [words] row) through
+    ``index.knns``: [k] tensors."""
+    q = query[None] if isinstance(query, torch.Tensor) else \
+        np.asarray(query)[None]
+    r = index.knns(q, k, ef)
+    return KnnResult(r.dists[0], r.ids[0])
+
+
 @dataclass
 class IndexOptions:
     """The JAX package's ``IndexOptions``: same fields, same defaults, so a
-    saved index's options load unchanged. ``HNSWBuilder`` reads them all;
-    ``expand`` > 1 is not ported (the build searches with expand=1, the
-    default) and ``reorder=True`` raises (ROADMAP §1, item 16)."""
+    saved index's options load unchanged. ``HNSWBuilder`` and
+    ``NSWBuilder`` read them all; ``reorder=True`` raises (ROADMAP §1,
+    item 6)."""
 
     ef_construction: int = 100
     connections: int = 16

@@ -19,7 +19,7 @@ import torch
 from ..ops.metrics import as_sketches, bit_dots, get_metric, popcount_sum, \
     unpack_bits
 from ..ops.topk import merge_min_k
-from .base import ID_INF, KnnResult
+from .base import ID_INF, KnnResult, search_one
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -34,6 +34,9 @@ class Bruteforce:
         self._chunks: list[np.ndarray] = []
         self._points = None
         self._n = 0
+
+    def add(self, point) -> None:
+        self.extend(np.asarray(point)[None])
 
     def extend(self, points) -> None:
         self._chunks.append(np.asarray(points))
@@ -54,6 +57,10 @@ class Bruteforce:
             self._chunks = [np.concatenate(self._chunks, axis=0)]
             self._points = as_sketches(self._chunks[0], self.device)
         return self._points
+
+    def search(self, query, k: int, ef: int = 0) -> KnnResult:
+        """k nearest neighbors of one query (a [words] row)."""
+        return search_one(self, query, k, ef)
 
     def knns(self, queries, k: int, ef: int = 0,
              batch: int = 1024) -> KnnResult:

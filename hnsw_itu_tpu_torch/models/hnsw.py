@@ -13,12 +13,25 @@ hierarchy, then the batched device build inserts the rest in progressive
 chunks (``models/_build.py``): per-point level draws, per-level groups,
 the ef=1 descent and the level inserts, and the base-layer chunk steps,
 with the gather beam-search kernel and the dense Hamming kernel on the
-card. ``HNSW`` serves queries on the device: a sampled entry, then one
-beam-search kernel over the base layer: the fused kernel where the fused
-table can serve the index, else the mini-table kernel with an exact
-rerank (past 2^21 points, or where the fused table does not fit the
-card). Paths not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+card, or the general beam search where the kernel cannot take the shape
+(rows wider than 128, ``ef_construction`` above 128, ``expand`` > 1).
+
+``HNSW`` serves queries on the device as the JAX ``HNSW.knns`` does: an
+entry per query (the sampled entry when ``query_entry_sample`` > 0, else
+the greedy ef=1 descent through the levels, ``descent_eps``), then one
+base-layer search on the first route that serves the call:
+
+* the fused kernel, where ``enable_inline`` built the fused table, with
+  ``max(ef, k) <= 128`` and ``query_expand == 1``;
+* the mini-table kernel and an exact rerank, under the same conditions
+  (past 2^21 points, or where the fused table does not fit the card);
+* the general beam search (``ops/search.py``) at ``ef = max(ef, k)``: the
+  JAX ``_hnsw_query_step``, for every other call (wide rows, ef > 128,
+  ``query_expand`` > 1, no table).
+
+The descent runs kernel #6 at ef=1 on each level whose rows it can read,
+else the general ``greedy_search``; both give the JAX ``_descent_eps``
+entries.
 """
 
 from __future__ import annotations
@@ -32,14 +45,11 @@ import torch
 
 from .. import native
 from ..graph import GraphArrays, make_graph
-from ..ops.entry import sampled_entry, sampled_entry_topk
-from ..ops.fused_search import MAX_EF, materialize_fused
 from ..ops.metrics import as_sketches, get_metric
-from ..ops.mini_search import materialize_mini
+from ..ops.search import greedy_search
 from . import _build
-from .base import ID_INF, IndexOptions, KnnResult, LazyStats, rng_seed
-from .nsw import (_fused_query_eligible, _mini_config_for, _query_step_fused,
-                  _query_step_mini)
+from .base import IndexOptions, rng_seed
+from .nsw import QueryIndex
 
 
 class Level(NamedTuple):
@@ -56,8 +66,36 @@ def _make_level(cap: int, width: int, device) -> Level:
     )
 
 
-class HNSW:
-    """Immutable search-side index. Its tensors live on ``device``."""
+def descent_eps(points, levels, qs, ep: int, *, metric,
+                max_steps: int) -> torch.Tensor:
+    """Base-layer entries int32[B]: the greedy ef=1 descent from ``ep``
+    through ``levels`` (top to bottom), following ``down`` (the JAX
+    ``_descent_eps`` without its sampled entry). On each level kernel #6
+    runs at ef=1 with the level's node map where it reads the level's
+    rows (``_build.search_route``), else ``greedy_search``. With one slot
+    the beam's key only falls, so a node it left never comes back: the
+    kernel's beam dedup, the JAX bitmask mode and its level-inline (beam)
+    mode all walk the same nodes and give the same entries."""
+    eps = torch.full((qs.shape[0],), int(ep), dtype=torch.int32,
+                     device=qs.device)
+    for lv in reversed(levels):
+        adj, node_ids = lv.graph.adj, lv.node_ids
+        cap_l = adj.shape[0]
+        if _build.search_route(adj, points, 1) == "kernel":
+            best = _build.build_search(points, node_ids, adj, qs, eps, ef=1,
+                                       max_steps=max_steps)[1][:, 0]
+        else:
+            _, best = greedy_search(
+                lambda ids, ni=node_ids: points[ni[ids].long()], adj, qs,
+                eps, metric=metric, capacity=cap_l, max_steps=max_steps)
+        eps = lv.down[best.long().clamp(0, cap_l - 1)]
+    return eps
+
+
+class HNSW(QueryIndex):
+    """Immutable search-side index. Its tensors live on ``device``.
+    Without a sampled entry, queries enter through the greedy descent
+    (``descent_eps``)."""
 
     def __init__(self, points, n, base: GraphArrays, levels, level_ns, ep,
                  metric, opts=None, *, device):
@@ -76,62 +114,14 @@ class HNSW:
         self.ep = int(ep) if ep is not None else None
         self.metric = get_metric(metric) if isinstance(metric, str) else metric
         self.opts = opts or IndexOptions()
-        self.query_batch = 1024
-        self.query_entry_sample = 0  # >0: sampled entry (ops/entry.py)
-        self.query_entry_beams = 1  # >1: seed with the sample's top-B (mini)
-        self.query_hop = 0  # >0: one-hop exact rerank seeds (mini path)
-        self.query_tie = "auto"  # mini-path tie order: auto, id or bitrev
-        self.max_steps = None  # None = auto (2*ef, floor 64)
-        self.last_stats = None
-        self.fused = None  # fused query table (ops/fused_search.py)
-        self.mini = None  # mini query table (ops/mini_search.py)
-        self.mini_words = 0
-        self.mini_W = 0
-        self.id_map = None  # int32[cap] new->original id (set by reorder)
+        self._init_query_state()
 
-    def size(self) -> int:
-        return self.n
+    def _base(self) -> GraphArrays:
+        return self.base
 
-    def _steps_cap(self, ef: int) -> int:
-        return self.max_steps if self.max_steps else max(2 * ef, 64)
-
-    def _tie_bits(self) -> int:
-        """Bits of the mini path's bit-reversed tie order: 0 (ties by id)
-        for "id", and for "auto" on an index that was not reordered."""
-        tie = self.query_tie
-        if tie == "id" or (tie == "auto" and self.id_map is None):
-            return 0
-        if tie not in ("auto", "bitrev"):
-            raise ValueError(f"unknown query_tie {tie!r}")
-        return max(1, (self.base.capacity - 1).bit_length())
-
-    def enable_inline(self) -> None:
-        """Materialize one base-layer query table, once: the fused table
-        when its kernel can serve this index (models/nsw.py
-        ``_fused_query_eligible``), else the mini table of the widest
-        prefix that fits the card's free memory less a margin
-        (``_mini_config_for``), built from the first ``W`` edges of each
-        row. The JAX package's level inline rows serve only the greedy
-        descent, which is not ported yet."""
-        if self.fused is not None or self.mini is not None:
-            return
-        if _fused_query_eligible(self.points, self.base.adj, self.metric):
-            self.fused = materialize_fused(self.points, self.base.adj)
-            return
-        W, mw = _mini_config_for(self.points, self.base.adj, self.metric)
-        if mw > 0:
-            self.mini = materialize_mini(self.points, self.base.adj[:, :W],
-                                         mini_words=mw)
-            self.mini_words, self.mini_W = mw, W
-
-    def _mini_entry(self, q: torch.Tensor) -> torch.Tensor:
-        """Seed ids of the mini path: the sampled entry, or its top
-        ``query_entry_beams`` when that is above 1 ([B] or [B, E])."""
-        kw = dict(sample_size=self.query_entry_sample, metric=self.metric)
-        if self.query_entry_beams > 1:
-            return sampled_entry_topk(self.points, q, self.n,
-                                      beams=self.query_entry_beams, **kw)[0]
-        return sampled_entry(self.points, q, self.n, **kw)
+    def _walk_entries(self, q: torch.Tensor, max_steps: int):
+        return descent_eps(self.points, self.levels, q, self.ep,
+                           metric=self.metric, max_steps=max_steps)
 
     def base_ep(self) -> int:
         """Follow the down-pointer chain from the top-level entry point to
@@ -140,61 +130,6 @@ class HNSW:
         for lv in reversed(self.levels):
             e = int(lv.down[e])
         return e
-
-    def knns(self, queries, k: int, ef: int) -> KnnResult:
-        """k nearest neighbors of every query: sampled entry, then the
-        base-layer beam search at beam width max(ef, k) on the fused
-        table, or on the mini table followed by an exact rerank."""
-        if self.ep is None:
-            raise ValueError("empty index")
-        if max(ef, k) > MAX_EF:
-            raise NotImplementedError(
-                f"ef > {MAX_EF}: the two-plane beam search is not ported "
-                "yet (ROADMAP §1, item 19)"
-            )
-        if self.query_entry_sample <= 0:
-            raise NotImplementedError(
-                "greedy descent through the levels (query_entry_sample=0) "
-                "is not ported yet (ROADMAP §1, item 18); "
-                "set query_entry_sample"
-            )
-        if self.fused is None and self.mini is None:
-            raise NotImplementedError(
-                "no fused or mini table: call enable_inline() first; "
-                "indexes neither table can serve need the general beam "
-                "search (ROADMAP §1, item 4)"
-            )
-        qs = as_sketches(queries, self.device)
-        nq = qs.shape[0]
-        B = self.query_batch
-        out_d, out_i, out_v, out_s = [], [], [], []
-        for s in range(0, nq, B):
-            q = qs[s : s + B]
-            if self.fused is not None:
-                eps = sampled_entry(self.points, q, self.n,
-                                    sample_size=self.query_entry_sample,
-                                    metric=self.metric)
-                d, i, vis, st = _query_step_fused(
-                    self.points, self.fused, q, eps, k=k, ef=ef,
-                    max_steps=self._steps_cap(ef),
-                )
-            else:
-                d, i, vis, st = _query_step_mini(
-                    self.points, self.mini, q, self._mini_entry(q), k=k,
-                    ef=ef, max_steps=self._steps_cap(ef), adj=self.base.adj,
-                    hop=self.query_hop, tie_bits=self._tie_bits(),
-                )
-            out_d.append(d)
-            out_i.append(i)
-            out_v.append(vis)
-            out_s.append(st)
-        cat = (lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs))
-        self.last_stats = LazyStats(cat(out_v), cat(out_s), nq)
-        ids = cat(out_i)
-        if self.id_map is not None:  # reordered index: original ids out
-            mapped = self.id_map[ids.clamp(0, self.id_map.shape[0] - 1).long()]
-            ids = torch.where(ids == ID_INF, ids, mapped)
-        return KnnResult(cat(out_d), ids)
 
 
 class HNSWBuilder:
@@ -216,11 +151,7 @@ class HNSWBuilder:
         if self.opts.reorder:
             raise NotImplementedError(
                 "reorder=True: the BFS reorder is not ported yet "
-                "(ROADMAP §1, item 16)")
-        if self.opts.expand != 1:
-            raise NotImplementedError(
-                "expand > 1: the E-way beam expansion is not ported yet "
-                "(ROADMAP §1, item 4)")
+                "(ROADMAP §1, item 6)")
         self.metric = get_metric(metric) if isinstance(metric, str) else metric
         self.device = torch.device(device)
         self.n = 0
@@ -271,26 +202,12 @@ class HNSWBuilder:
         )
 
     def _grow_capacity(self, need: int) -> None:
-        """Base-layer growth past ``size`` (the JAX
-        ``NSWBuilder._grow_capacity``): the next power-of-two multiple of
-        the capacity that holds ``need`` rows. The spill buffer's junk row
-        stays last."""
-        cap = self.opts.size
-        new = max(1, cap)
-        while new < need:
-            new *= 2
-        if new == cap:
-            return
-        pad = new - cap
-        self.opts = dataclasses.replace(self.opts, size=new)
-        ext = make_graph(pad, self.base.width, device=self.device)
-        self.base = GraphArrays(torch.cat([self.base.adj, ext.adj]),
-                                torch.cat([self.base.deg, ext.deg]))
-        self.spill = torch.cat([self.spill[:-1], _build.make_spill(
-            pad, self.spill.shape[1], device=self.device)])
-        if self.points is not None:
-            self.points = torch.cat([self.points, self.points.new_zeros(
-                (pad, self.points.shape[1]))])
+        """Base-layer growth past ``size``: see ``_build.grow_base``."""
+        grown = _build.grow_base(self.opts.size, need, self.base,
+                                 self.spill, self.points)
+        if grown is not None:
+            size, self.base, self.spill, self.points = grown
+            self.opts = dataclasses.replace(self.opts, size=size)
 
     # -- builder API ----------------------------------------------------------
     def _ensure_points(self, sample: np.ndarray) -> None:
@@ -304,11 +221,11 @@ class HNSWBuilder:
         self.n += chunk.shape[0]
 
     def add(self, point) -> None:
-        self.extend(_as_u32(point)[None])
+        self.extend(_build.as_u32(point)[None])
 
     def extend(self, points) -> None:
         """Sequential inserts: chunks of one, per-point level draw."""
-        pts = _as_u32(points)
+        pts = _build.as_u32(points)
         self._ensure_points(pts)
         for row in pts:
             self._insert_chunk(row[None])
@@ -323,7 +240,7 @@ class HNSWBuilder:
         steps (the JAX scanned dispatch, as a loop). ``progress`` is called
         with the running row count after the warmup and after every
         group."""
-        pts = _as_u32(points)
+        pts = _build.as_u32(points)
         self._ensure_points(pts)
         off = self._host_warmup(pts)
         if off and progress:
@@ -430,7 +347,8 @@ class HNSWBuilder:
         ``enable_inline()`` on the result before querying."""
         if self.points is None:
             raise ValueError("empty index: call extend_batched first")
-        self._drain_spill()
+        _build.drain_spill(self.points, self.base, self.spill, self.opts,
+                           timings=self.timings)
         self.edge_drops.append((self.spill[:-1] >= 0).sum(dtype=torch.int32))
         levels = []
         for lv, nl in zip(self.levels, self.level_ns):
@@ -440,19 +358,6 @@ class HNSWBuilder:
                                             lv.graph.deg[:m])))
         return HNSW(self.points, self.n, self.base, levels, self.level_ns,
                     self.ep, self.metric, self.opts, device=self.device)
-
-    def _drain_spill(self, max_passes: int = 4) -> None:
-        """Prune-only passes on the base layer consuming leftover spill
-        entries."""
-        budget = min(self.opts.size,
-                     max(self.opts.prune_budget, self.opts.batch_size * 16))
-        none = torch.empty((0,), dtype=torch.int32, device=self.device)
-        for _ in range(max_passes):
-            if not bool((self.spill[:-1] >= 0).any()):
-                break
-            self.base, self.spill, _ = _build.apply_inserts(
-                self.points, None, self.base, none, none.reshape(0, 1),
-                self.spill, prune_budget=budget, timings=self.timings)
 
     # -- the chunk insert -----------------------------------------------------
     def _insert_chunk(self, chunk: np.ndarray, level: int | None = None):
@@ -553,6 +458,7 @@ class HNSWBuilder:
         g, next_eps, dropped = _build.level_chunk_step(
             self.points, lv.node_ids, lv.graph, lv.down, q, loc, eps,
             efc=self.opts.ef_construction, m=self.opts.connections,
+            expand=self.opts.expand,
             prune_budget=min(lv.graph.capacity,
                              max(self.opts.prune_budget, cpad)),
             timings=self.timings)
@@ -566,7 +472,7 @@ class HNSWBuilder:
         self.base, self.spill, dropped = _build.chunk_step(
             self.points, None, self.base, self.spill, q, ids_t, n0, eps,
             efc=self.opts.ef_construction, m=self.opts.connections,
-            prune_budget=min(self.opts.size,
+            expand=self.opts.expand, prune_budget=min(self.opts.size,
                              max(self.opts.prune_budget, cpad)),
             entry_sample=self.opts.entry_sample, use_entry=eps is None,
             timings=self.timings)
@@ -589,18 +495,9 @@ class HNSWBuilder:
                 self.points, None, self.base, self.spill,
                 self.points[ids.long()], ids, n0, eps[s : s + c],
                 efc=self.opts.ef_construction, m=self.opts.connections,
+                expand=self.opts.expand,
                 prune_budget=min(self.opts.size,
                                  max(self.opts.prune_budget, c)),
                 entry_sample=self.opts.entry_sample, use_entry=True,
                 timings=self.timings)
             self.edge_drops.append(dropped)
-
-
-def _as_u32(points) -> np.ndarray:
-    """Host sketches as C-contiguous uint32 (int32 bit patterns kept)."""
-    pts = np.ascontiguousarray(points)
-    if pts.dtype == np.int32:
-        pts = pts.view(np.uint32)
-    if pts.dtype != np.uint32:
-        raise TypeError(f"sketch arrays are uint32 or int32, got {pts.dtype}")
-    return pts

@@ -1,23 +1,43 @@
-"""Query steps over the two base-layer tables (port of the query side of
-hnsw_itu_tpu/models/nsw.py): the fused table (``_fused_query_eligible``,
-``_query_step_fused``) and, past the fused table's limits, the mini table
-(``_mini_config_for``, ``_query_step_mini``).
+"""NSW, the single-layer navigable small world index, and its builder
+(port of hnsw_itu_tpu/models/nsw.py), with the query steps HNSW
+(models/hnsw.py) shares.
 
-The NSW index class and ``NSWBuilder`` are still to port (ROADMAP §1);
-HNSW (models/hnsw.py) already queries through these steps.
+Query steps over the two base-layer tables: the fused table
+(``_fused_query_eligible``, ``_query_step_fused``) and, past the fused
+table's limits, the mini table (``_mini_config_for``,
+``_query_step_mini``). Every other call runs the general beam search
+(``ops/search.py``), where ``_inline_query_fits`` stands for the JAX
+package's inline base rows.
+
+``NSWBuilder`` builds as the JAX builder does on its gather route: the
+native host engine inserts the first ``host_warmup`` points, then the
+batched device chunks (``models/_build.py`` ``chunk_step`` with node map
+None) insert the rest, the scanned groups as a loop of chunk steps. The
+JAX inline build rows and its scanned dispatch are TPU layout and are not
+ported; neither is ``reorder`` (ROADMAP §1, item 6).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from ..ops.fused_search import (MAX_WIDTH, FusedTable, fused_beam_search,
-                                fused_width, key_clamp)
-from ..ops.metrics import popcount_sum
-from ..ops.mini_search import (IINF, LANES, mini_beam_search, mini_subrows,
-                               rerank_exact, rerank_onehop)
+from .. import native
+from ..graph import GraphArrays, make_graph
+from ..ops.entry import sampled_entry, sampled_entry_topk
+from ..ops.fused_search import (MAX_EF, MAX_WIDTH, FusedTable,
+                                fused_beam_search, fused_width, key_clamp,
+                                materialize_fused)
+from ..ops.metrics import as_sketches, get_metric, popcount_sum
+from ..ops.mini_search import (IINF, LANES, materialize_mini,
+                               mini_beam_search, mini_subrows, rerank_exact,
+                               rerank_onehop)
+from ..ops.search import batched_beam_search
 from ..ops.topk import inverse_permutation
-from .base import ID_INF
+from . import _build
+from .base import ID_INF, IndexOptions, KnnResult, LazyStats, search_one
 
 # device memory left free beside the fused or mini table for the query
 # batch's temporaries (entry block, sort, keys, rerank gathers)
@@ -60,6 +80,17 @@ def _fused_query_eligible(points: torch.Tensor, adj: torch.Tensor,
         need = fused_table_bytes(cap, width, words) + _QUERY_MARGIN_BYTES
         return need <= _free_device_bytes(points.device)
     return True
+
+
+def _inline_query_fits(points: torch.Tensor, adj: torch.Tensor) -> bool:
+    """Would the JAX package hold inline base rows (each row's neighbor
+    sketches, ``cap * W * words`` words) for this index? On a CUDA device
+    by the budget rule of ``_fused_query_eligible`` (the card's free
+    memory less the query margin); on CPU tensors always."""
+    if points.device.type != "cuda":
+        return True
+    need = adj.shape[0] * adj.shape[1] * points.shape[1] * 4
+    return need + _QUERY_MARGIN_BYTES <= _free_device_bytes(points.device)
 
 
 def _query_step_fused(points: torch.Tensor, fused: FusedTable,
@@ -163,3 +194,341 @@ def _query_step_mini(points: torch.Tensor, mini: torch.Tensor,
     d = torch.where(valid, dk, ID_INF)[inv]
     i = torch.where(valid, ik, ID_INF)[inv]
     return d, i, vis[inv], stp[inv]
+
+
+class QueryIndex:
+    """The query side NSW and HNSW share, as the JAX classes do: one
+    base-layer table built once by ``enable_inline``, the route choice,
+    ``knns`` and ``search``. A subclass holds ``device``, ``points``,
+    ``n``, ``ep``, ``metric`` and its base graph (``_base()``), and gives
+    the entries used without a sampled entry (``_walk_entries``)."""
+
+    def _init_query_state(self) -> None:
+        self.query_expand = 1  # >1: the general route, E-way expansion
+        self.query_batch = 1024
+        self.query_dedup = "bitmask"  # the general route's dedup
+        self.query_entry_sample = 0  # >0: sampled entry (ops/entry.py)
+        self.query_entry_beams = 1  # >1: seed with the sample's top-B (mini)
+        self.query_hop = 0  # >0: one-hop exact rerank seeds (mini path)
+        self.query_tie = "auto"  # tie order: auto, id or bitrev
+        self.max_steps = None  # None = auto (2*ef, floor 64)
+        self.last_stats = None
+        self.last_route = None  # "fused", "mini" or "general": last knns
+        # where the JAX enable_inline would hold inline base rows: the
+        # general route then dedups by beam, as those rows force in JAX
+        self.inline_rows = False
+        self.fused = None  # fused query table (ops/fused_search.py)
+        self.mini = None  # mini query table (ops/mini_search.py)
+        self.mini_words = 0
+        self.mini_W = 0
+        self.id_map = None  # int32[cap] new->original id (set by reorder)
+
+    def _base(self) -> GraphArrays:
+        raise NotImplementedError
+
+    def _walk_entries(self, q: torch.Tensor, max_steps: int):
+        raise NotImplementedError
+
+    def size(self) -> int:
+        return self.n
+
+    def _steps_cap(self, ef: int) -> int:
+        return self.max_steps if self.max_steps else max(2 * ef, 64)
+
+    def _tie_bits(self) -> int:
+        """Bits of the bit-reversed tie order: 0 (ties by id) for "id",
+        and for "auto" on an index that was not reordered."""
+        tie = self.query_tie
+        if tie == "id" or (tie == "auto" and self.id_map is None):
+            return 0
+        if tie not in ("auto", "bitrev"):
+            raise ValueError(f"unknown query_tie {tie!r}")
+        return max(1, (self._base().capacity - 1).bit_length())
+
+    def enable_inline(self) -> None:
+        """Materialize one base-layer query table, once: the fused table
+        when its kernel can serve this index (``_fused_query_eligible``),
+        else the mini table of the widest prefix that fits the card's free
+        memory less a margin (``_mini_config_for``), built from the first
+        ``W`` edges of each row. Where neither serves and the JAX package
+        would materialize inline base rows (``_inline_query_fits``), that
+        fact is recorded (``inline_rows``): the general route then runs
+        ``dedup="beam"``, the one effect of those rows on results, without
+        building them. The JAX level inline rows change no descent entry
+        and are not ported."""
+        if self.fused is not None or self.mini is not None \
+                or self.inline_rows:
+            return
+        adj = self._base().adj
+        if _fused_query_eligible(self.points, adj, self.metric):
+            self.fused = materialize_fused(self.points, adj)
+            return
+        W, mw = _mini_config_for(self.points, adj, self.metric)
+        if mw > 0:
+            self.mini = materialize_mini(self.points, adj[:, :W],
+                                         mini_words=mw)
+            self.mini_words, self.mini_W = mw, W
+            return
+        self.inline_rows = _inline_query_fits(self.points, adj)
+
+    def search(self, query, k: int, ef: int) -> KnnResult:
+        """k nearest neighbors of one query (a [words] row)."""
+        return search_one(self, query, k, ef)
+
+    def route(self, k: int, ef: int) -> str:
+        """The base-layer route of ``knns(.., k, ef)``: "fused", "mini" or
+        "general" (the JAX ``knns`` choice)."""
+        table_ok = max(ef, k) <= MAX_EF and self.query_expand == 1
+        if self.fused is not None and table_ok:
+            return "fused"
+        if self.mini is not None and table_ok:
+            return "mini"
+        return "general"
+
+    def _entries(self, q: torch.Tensor, max_steps: int, beams: int = 1):
+        """Entries of the base search: the sampled entry (its top
+        ``beams`` when above 1) when ``query_entry_sample`` > 0, else
+        ``_walk_entries``."""
+        if self.query_entry_sample <= 0:
+            return self._walk_entries(q, max_steps)
+        kw = dict(sample_size=self.query_entry_sample, metric=self.metric)
+        if beams > 1:
+            return sampled_entry_topk(self.points, q, self.n, beams=beams,
+                                      **kw)[0]
+        return sampled_entry(self.points, q, self.n, **kw)
+
+    def knns(self, queries, k: int, ef: int) -> KnnResult:
+        """k nearest neighbors of every query: the entries, then the
+        base-layer search at beam width max(ef, k) on the route ``route``
+        picks."""
+        if self.ep is None:
+            raise ValueError("empty index")
+        qs = as_sketches(queries, self.device)
+        nq = qs.shape[0]
+        route = self.route(k, ef)
+        steps = self._steps_cap(ef)
+        out = []
+        for s in range(0, nq, self.query_batch):
+            q = qs[s : s + self.query_batch]
+            if route == "fused":
+                out.append(_query_step_fused(
+                    self.points, self.fused, q, self._entries(q, steps),
+                    k=k, ef=ef, max_steps=steps))
+            elif route == "mini":
+                out.append(_query_step_mini(
+                    self.points, self.mini, q,
+                    self._entries(q, steps, self.query_entry_beams), k=k,
+                    ef=ef, max_steps=steps, adj=self._base().adj,
+                    hop=self.query_hop, tie_bits=self._tie_bits()))
+            else:
+                out.append(self._query_step_general(
+                    q, self._entries(q, steps), k=k, ef=ef,
+                    max_steps=steps))
+        d, i, vis, st = (xs[0] if len(xs) == 1 else torch.cat(xs)
+                         for xs in zip(*out))
+        self.last_stats = LazyStats(vis, st, nq)
+        self.last_route = route
+        if self.id_map is not None:  # reordered index: original ids out
+            mapped = self.id_map[i.clamp(0, self.id_map.shape[0] - 1).long()]
+            i = torch.where(i == ID_INF, i, mapped)
+        return KnnResult(d, i)
+
+    def _query_step_general(self, q, eps, *, k: int, ef: int,
+                            max_steps: int):
+        """The base search of the JAX ``_query_step`` and
+        ``_hnsw_query_step`` on the general beam search: (dists, ids
+        int32[B, k], visited, steps int32[B])."""
+        adj = self._base().adj
+        res = batched_beam_search(
+            lambda ids: self.points[ids], adj, q, eps, ef=max(ef, k),
+            metric=self.metric, capacity=adj.shape[0],
+            expand=self.query_expand, max_steps=max_steps,
+            dedup="beam" if self.inline_rows else self.query_dedup,
+            tie_bits=self._tie_bits())
+        return res.dists[:, :k], res.ids[:, :k], res.visited, res.steps
+
+
+class NSW(QueryIndex):
+    """Immutable search-side index (the JAX ``NSW``). Its tensors live on
+    ``device``. Queries enter at ``ep``, or at the sampled entry when
+    ``query_entry_sample`` > 0."""
+
+    def __init__(self, points, n, graph: GraphArrays, ep, metric, opts=None,
+                 *, device):
+        self.device = torch.device(device)
+        self.points = points.to(self.device)
+        self.n = int(n)
+        self.graph = GraphArrays(graph.adj.to(self.device),
+                                 graph.deg.to(self.device))
+        self.ep = int(ep) if ep is not None else None
+        self.metric = get_metric(metric) if isinstance(metric, str) else metric
+        self.opts = opts or IndexOptions()
+        self._init_query_state()
+
+    def _base(self) -> GraphArrays:
+        return self.graph
+
+    def _walk_entries(self, q: torch.Tensor, max_steps: int):
+        return torch.full((q.shape[0],), self.ep, dtype=torch.int32,
+                          device=q.device)
+
+
+class NSWBuilder:
+    """Builds an NSW index as the JAX ``NSWBuilder`` does on its gather
+    route: the native host engine for the first ``host_warmup`` points,
+    then progressive device chunks. The same options and points give the
+    same graph, entry point and edge drops in both packages. The
+    builder's tensors, and the finished index's, live on ``device``."""
+
+    def __init__(self, options: IndexOptions | None = None, metric="hamming",
+                 *, device):
+        self.opts = options or IndexOptions()
+        if self.opts.size <= 0:
+            raise ValueError("IndexOptions.size must be set (preallocation)")
+        if self.opts.reorder:
+            raise NotImplementedError(
+                "reorder=True: the BFS reorder is not ported yet "
+                "(ROADMAP §1, item 6)")
+        self.metric = get_metric(metric) if isinstance(metric, str) else metric
+        self.device = torch.device(device)
+        self.n = 0
+        self.ep = None
+        self.points = None  # int32[size, words] on device, first extend
+        self.graph = make_graph(self.opts.size, self.opts.max_connections,
+                                device=self.device)
+        self.spill = _build.make_spill(self.opts.size, device=self.device)
+        self.edge_drops = []  # per-chunk reverse-edge drop counts (tensors)
+        self.timings = None  # dict: CUDA event pairs by phase (_build)
+
+    def total_edge_drops(self) -> int:
+        """Reverse edges lost to full rows across the whole build."""
+        return int(sum(int(d) for d in self.edge_drops))
+
+    def _grow_capacity(self, need: int) -> None:
+        """Growth past ``size``: see ``_build.grow_base``."""
+        grown = _build.grow_base(self.opts.size, need, self.graph,
+                                 self.spill, self.points)
+        if grown is not None:
+            size, self.graph, self.spill, self.points = grown
+            self.opts = dataclasses.replace(self.opts, size=size)
+
+    def _ensure_points(self, sample: np.ndarray) -> None:
+        if self.points is None:
+            self.points = torch.zeros((self.opts.size, sample.shape[1]),
+                                      dtype=torch.int32, device=self.device)
+
+    def add(self, point) -> None:
+        self.extend(_build.as_u32(point)[None])
+
+    def extend(self, points, sequential: bool = True) -> None:
+        """Sequential inserts (chunks of one), or ``extend_batched``."""
+        pts = _build.as_u32(points)
+        self._ensure_points(pts)
+        if not sequential:
+            self.extend_batched(pts)
+            return
+        for row in pts:
+            self._insert_chunk(row[None])
+
+    def extend_batched(self, points, progress=None) -> None:
+        """Host-native sequential warmup of the first ``host_warmup``
+        points, then progressive chunks on the device; a scanned group of
+        G steady-state chunks runs as G chunk steps. ``progress`` is
+        called with the running row count after the warmup and after
+        every group."""
+        pts = _build.as_u32(points)
+        self._ensure_points(pts)
+        off = self._host_warmup(pts)
+        if off and progress:
+            progress(off)
+        if self.ep is None and pts.shape[0] > off:
+            self._insert_chunk(pts[off : off + 1])
+            off += 1
+        max_chunk = self.opts.batch_size * 16
+        sched = _build.chunk_schedule(self.n, pts.shape[0] - off,
+                                      max_chunk=max_chunk)
+        i = 0
+        while i < len(sched):
+            G = _build.scan_group_at(
+                sched, i, max_chunk, self.opts.scan_group,
+                entry_ready=(self.opts.entry_sample > 0
+                             and self.n > self.opts.entry_sample))
+            for c in sched[i : i + G]:
+                self._insert_chunk(pts[off : off + c])
+                off += c
+            i += G
+            if progress:
+                progress(off)
+
+    def _host_warmup(self, pts: np.ndarray) -> int:
+        """CPU-native sequential build of the first ``host_warmup`` points
+        (the JAX ``NSWBuilder._host_warmup``: the same buffers and call),
+        then its arrays go to the device. Returns the number of points
+        inserted (0: not run)."""
+        warm = min(self.opts.host_warmup, pts.shape[0])
+        if self.n > 0 or warm < 2 or self.metric.name not in \
+                native.METRIC_CODE:
+            return 0
+        cap, W = self.opts.size, self.opts.max_connections
+        pts_np = np.zeros((cap, pts.shape[1]), np.uint32)
+        pts_np[:warm] = pts[:warm]
+        adj_np = np.full((cap, W), -1, np.int32)
+        deg_np = np.zeros((cap,), np.int32)
+        native.host_build(pts_np, self.metric.name, adj_np, deg_np, 1, warm,
+                          m=self.opts.connections,
+                          efc=self.opts.ef_construction, ep=0)
+        dev = self.device
+        self.points = as_sketches(pts_np, dev)
+        self.graph = GraphArrays(torch.from_numpy(adj_np).to(dev),
+                                 torch.from_numpy(deg_np).to(dev))
+        self.ep = 0
+        self.n = warm
+        return warm
+
+    def build(self) -> NSW:
+        """The finished index on ``device``: leftover spill entries get up
+        to four prune passes (those still left count as edge drops). Call
+        ``enable_inline()`` on the result before querying."""
+        if self.points is None:
+            raise ValueError("empty index: call extend_batched first")
+        _build.drain_spill(self.points, self.graph, self.spill, self.opts,
+                           timings=self.timings)
+        self.edge_drops.append((self.spill[:-1] >= 0).sum(dtype=torch.int32))
+        return NSW(self.points, self.n, self.graph, self.ep, self.metric,
+                   self.opts, device=self.device)
+
+    def _insert_chunk(self, chunk: np.ndarray) -> None:
+        """Write and insert a contiguous chunk: the first point ever
+        becomes the entry point; the rest enter at the sampled entry once
+        there are more than ``entry_sample`` points, else at ``ep``."""
+        c = chunk.shape[0]
+        if self.n + c > self.opts.size:
+            self._grow_capacity(self.n + c)
+        if self.ep is None:
+            _build.write_points(self.points, as_sketches(chunk[:1],
+                                                         self.device), self.n)
+            self.ep = self.n
+            self.n += 1
+            chunk, c = chunk[1:], c - 1
+            if c == 0:
+                return
+        n0 = self.n
+        q = as_sketches(chunk, self.device)
+        _build.write_points(self.points, q, n0)
+        # the JAX step's bucket padding shows only in the prune budget
+        S = 1 if c == 1 else min(self.opts.batch_size,
+                                 1 << (c - 1).bit_length())
+        cp = -(-c // S) * S
+        use_entry = self.opts.entry_sample > 0 and n0 > self.opts.entry_sample
+        new_ids = torch.arange(n0, n0 + c, dtype=torch.int32,
+                               device=self.device)
+        eps = None if use_entry else torch.full_like(new_ids, self.ep)
+        self.graph, self.spill, dropped = _build.chunk_step(
+            self.points, None, self.graph, self.spill, q, new_ids, n0, eps,
+            efc=self.opts.ef_construction, m=self.opts.connections,
+            expand=self.opts.expand,
+            prune_budget=min(self.opts.size, max(self.opts.prune_budget, cp)),
+            entry_sample=self.opts.entry_sample, use_entry=use_entry,
+            timings=self.timings)
+        self.n += c
+        self.edge_drops.append(dropped)

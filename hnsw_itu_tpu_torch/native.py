@@ -1,13 +1,16 @@
 """ctypes bindings for the native host runtime (native/hnsw_host.cpp).
 
-A copy of hnsw_itu_tpu/native.py, reduced to what slice 1 calls and with
+A copy of hnsw_itu_tpu/native.py, reduced to what the port calls and with
 every ``argtypes`` declared. It loads the same ``native/libhnsw_host.so``:
 ``make -C native`` builds it (a no-op when it is fresh); where ``make`` is
 missing, ``g++`` is called with the Makefile's flags. With neither, ``load``
 raises. Exposes:
 
-* ``host_build_hnsw`` — exact-reference-semantics sequential inserts with
-                        the full hierarchy (the host build of slice 1)
+* ``host_build``      — exact-reference-semantics sequential inserts into
+                        one flat graph (the NSW host warmup)
+* ``host_build_hnsw`` — the same with the full hierarchy (the HNSW host
+                        warmup, and the whole build with ``host_warmup >=
+                        size``)
 * ``host_bruteforce`` — exact scan oracle
 * ``hamming``         — scalar distance golden hook
 """
@@ -84,6 +87,10 @@ def load():
             raise RuntimeError("hnsw_host ABI mismatch")
         lib.hnsw_host_hamming.argtypes = [_P, _P, _I32]
         lib.hnsw_host_hamming.restype = _I32
+        lib.hnsw_host_build.argtypes = [
+            _P, _I32, _I32, _P, _P, _I64, _I32, _I64, _I64, _I32, _I32, _I32,
+        ]
+        lib.hnsw_host_build.restype = _I64
         lib.hnsw_host_build_hnsw.argtypes = [
             _P, _I32, _I32, _P, _P, _I64, _I32, _I64, _I64, _I32, _I32, _P,
             _I32, _P, _P, _P, _P, _P, _P, _P,
@@ -113,6 +120,26 @@ def hamming(a: np.ndarray, b: np.ndarray) -> int:
     if a.size != b.size:
         raise ValueError("hamming: operands differ in length")
     return int(lib.hnsw_host_hamming(_ptr(a), _ptr(b), a.size))
+
+
+def host_build(points: np.ndarray, metric: str, adj: np.ndarray,
+               deg: np.ndarray, n0: int, n1: int, m: int, efc: int,
+               ep: int) -> int:
+    """Insert points [n0, n1) sequentially into one flat graph; mutates
+    ``adj``/``deg`` in place. Returns the number inserted."""
+    lib = load()
+    _check(adj, np.int32, "adj")
+    _check(deg, np.int32, "deg")
+    points = np.ascontiguousarray(points)
+    if adj.shape[0] < n1 or points.shape[0] < n1:
+        raise ValueError("host_build: arrays shorter than n1")
+    r = lib.hnsw_host_build(
+        _ptr(points), points.shape[1], METRIC_CODE[metric], _ptr(adj),
+        _ptr(deg), adj.shape[0], adj.shape[1], n0, n1, m, efc, ep,
+    )
+    if r < 0:
+        raise ValueError("hnsw_host_build: bad arguments")
+    return int(r)
 
 
 def host_build_hnsw(points: np.ndarray, metric: str, adj: np.ndarray,

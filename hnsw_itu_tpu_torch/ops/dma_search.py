@@ -12,7 +12,9 @@ as they are.
 
 Keys are int64 ``d << 32 | id`` (``ops/mini_search.py``), so any id below
 2^31 is exact; empty slots are ``KEY_INF``. The beam holds at most 128
-keys: a larger ``ef`` raises ``NotImplementedError``.
+keys: a larger ``ef`` raises ``NotImplementedError``. Callers route by
+shape before the call (``models/_build.py`` ``search_route``): the general
+beam search (``ops/search.py``) takes what the kernel does not.
 
 ``dma_beam_search`` launches ``csrc/dma_beam_search.cu`` for CUDA tensors
 and runs the plain version (``ops/search.py`` ``beam_search_gather``) for
@@ -47,14 +49,16 @@ def _check_inputs(adj, points, node_map, queries, init_d, init_i, ef,
     if ef > MAX_EF:
         raise NotImplementedError(
             f"ef={ef} > {MAX_EF}: the gather beam search holds at most "
-            f"{MAX_EF} keys; wider beams are ROADMAP §1, item 19")
+            f"{MAX_EF} keys; the general beam search (ops/search.py) "
+            "serves wider beams")
     if ef < 1:
         raise ValueError(f"ef={ef} < 1")
     if adj.dim() != 2 or not adj.is_contiguous():
         raise ValueError("adj must be a contiguous int32[cap, W]")
     cap, W = adj.shape
     if W > MAX_WIDTH:
-        raise ValueError(f"adjacency width {W} > {MAX_WIDTH}")
+        raise ValueError(f"adjacency width {W} > {MAX_WIDTH}: the general "
+                         "beam search (ops/search.py) serves wider rows")
     if points.dim() != 2 or not points.is_contiguous():
         raise ValueError("points must be a contiguous int32[cap_pts, words]")
     if queries.dim() != 2 or queries.shape[1] != points.shape[1]:

@@ -3,8 +3,8 @@
 Sketches are 1024-bit, held as ``int32[..., 32]``: the JAX package's
 ``uint32`` words with the same bit patterns (``np.uint32`` viewed as
 ``np.int32``), because PyTorch has no CPU ``uint32`` shift. PyTorch has no
-popcount either, so ``popcount`` widens each word to int64 and counts its
-bits with SWAR arithmetic (no intermediate can overflow there).
+popcount either, so ``popcount`` counts each word's bits with SWAR
+arithmetic in int32.
 
 ``pairwise_mxu`` keeps the JAX name for the dense-block route: the
 bit-unpack identity ``ham(a, b) = pop(a) + pop(b) - 2 <bits_a, bits_b>``
@@ -13,8 +13,8 @@ oracle compare integers): the product runs on float32 operands with TF32
 switched off, because every partial sum is an integer <= 1024 that float32
 holds exactly. A bf16 product would round its bf16 result.
 
-Only the Hamming metric is ported in slice 1; ``l2int`` and ``l2`` are on
-the ROADMAP.
+Only the Hamming metric is ported; ``l2int`` and ``l2`` are on the
+ROADMAP.
 """
 
 from __future__ import annotations
@@ -43,12 +43,17 @@ def as_sketches(x, device) -> torch.Tensor:
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:
-    """Per-element popcount of int32 words -> int32."""
-    v = x.to(torch.int64) & 0xFFFFFFFF
+    """Per-element popcount of int32 words -> int32. The sign bit is
+    counted apart, so the SWAR steps run on values below 2^31; the byte
+    counts are folded by shifts and adds (no multiply), so no intermediate
+    overflows int32."""
+    v = x & 0x7FFFFFFF
     v = v - ((v >> 1) & _M1)
     v = (v & _M2) + ((v >> 2) & _M2)
     v = (v + (v >> 4)) & _M4
-    return ((v * 0x01010101) >> 24 & 0xFF).to(torch.int32)
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return (v & 0x3F) + (x < 0).to(torch.int32)
 
 
 def popcount_sum(x: torch.Tensor) -> torch.Tensor:
@@ -85,10 +90,22 @@ def bit_dots(a_bits: torch.Tensor, b_bits: torch.Tensor) -> torch.Tensor:
         return (a_bits @ b_bits.T).to(torch.int32)
 
 
+INT32_INF = np.iinfo(np.int32).max
+
+
 class Hamming:
-    """XOR + popcount over packed int32 words."""
+    """XOR + popcount over packed int32 words. ``name``, ``dist_dtype``,
+    ``inf``, ``max_distance`` and ``one_to_many`` are the JAX ``Metric``
+    interface that the general beam search (``ops/search.py``) reads."""
 
     name = "hamming"
+    dist_dtype = torch.int32
+    inf = INT32_INF  # the +infinity sentinel of dist_dtype
+
+    @staticmethod
+    def max_distance(q: torch.Tensor) -> int:
+        """Static bound on distances for this query shape: all bits."""
+        return int(q.shape[-1]) * 32
 
     @staticmethod
     def one_to_many(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -127,6 +144,6 @@ def get_metric(name: str) -> Hamming:
         return HAMMING
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"metric {name!r} is not ported yet (ROADMAP §1, item 2)"
+            f"metric {name!r} is not ported yet (ROADMAP §1, item 4)"
         )
     raise ValueError(f"unknown metric {name!r}; known: ['hamming']")

@@ -36,9 +36,19 @@ two-key search over a plain adjacency array, each neighbor's full sketch
 gathered from the point array (through a node map on the upper HNSW
 levels): the build's search, and the function of the JAX package's
 ``dma_beam_search``.
+
+``batched_beam_search`` (and ``greedy_search`` on it) is of another kind:
+the port of the JAX package's XLA search, no kernel's yardstick. It takes
+any ``ef``, ``expand``, adjacency width and capacity, both dedup modes
+and both of the JAX key branches, and runs as plain PyTorch on CPU and
+CUDA tensors alike. It serves what the kernels cannot: the build's
+searches past kernel #6's limits, the query-time greedy descent on wide
+levels, and queries no table serves (``models/hnsw.py``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -278,3 +288,317 @@ def beam_search_gather(adj: torch.Tensor, points: torch.Tensor,
         bk, bx, fresh = _merge_by_id(bk, bx, ck, is_cand, ef)
         vis += fresh
     return bk, vis, steps
+
+
+# -- the general beam search (port of the XLA search, not of a kernel) -------
+
+ID_INF = 0x7FFFFFFF  # the empty id slot (``models/base.py`` ID_INF)
+
+
+class SearchResult(NamedTuple):
+    """Fixed-shape search output, as in the JAX package: [B, ef] ascending
+    (distance, id), padded with (``metric.inf``, ``ID_INF``); ``visited``
+    and ``steps`` int32[B]."""
+
+    dists: torch.Tensor
+    ids: torch.Tensor
+    visited: torch.Tensor
+    steps: torch.Tensor
+
+
+def _tie_enc(ids: torch.Tensor, tie_bits: int, valid) -> torch.Tensor:
+    """Bit-reversed ids where ``valid`` (an involution: also the decode)."""
+    if not tie_bits:
+        return ids
+    from .mini_search import bitrev_ids
+
+    return torch.where(valid, bitrev_ids(ids, tie_bits), ids)
+
+
+def _sort2(k1: torch.Tensor, k2: torch.Tensor, *rest: torch.Tensor):
+    """Stable sort of each row by (k1, k2), the other tensors carried
+    along: two stable planes (by k2, then by k1), so keys of any dtype
+    sort without packing them into one integer."""
+    o = torch.argsort(k2, dim=1, stable=True)
+    o = o.gather(1, torch.argsort(k1.gather(1, o), dim=1, stable=True))
+    return [t.gather(1, o) for t in (k1, k2, *rest)]
+
+
+def _first_dup(x: torch.Tensor) -> torch.Tensor:
+    """bool mask of the entries equal to their left neighbor in a row."""
+    dup = torch.zeros_like(x, dtype=torch.bool)
+    dup[:, 1:] = x[:, 1:] == x[:, :-1]
+    return dup
+
+
+def _select(bx: torch.Tensor, finite: torch.Tensor, E: int):
+    """The E best unexpanded beam slots (the beam is sorted): their mask,
+    and their positions int64[b, E] ascending, padded with ``ef + 1``
+    (the JAX cumsum rank and ``top_k``)."""
+    ef = bx.shape[1]
+    unexp = ~bx
+    rank = unexp.to(torch.int32).cumsum(dim=1) - 1
+    sel = unexp & (rank < E) & finite
+    pos = torch.arange(ef, device=bx.device).expand_as(bx)
+    score = torch.where(sel, pos, ef + 1)
+    return sel, score.sort(dim=1).values[:, :E]
+
+
+def _run(state: dict, live_fn, step_fn, max_steps: int,
+         outputs: tuple[str, ...]) -> dict:
+    """Step every query until it stops: ``live_fn(state)`` -> bool[b],
+    ``step_fn(state)`` advances every row of ``state`` once. A query
+    leaves the working set (its ``outputs`` rows are written out) when it
+    stops, so later steps touch only the queries still running. Every
+    value of ``state`` is a tensor with the batch as dimension 0."""
+    q = state["q"]
+    out = {k: torch.empty_like(state[k]) for k in outputs}
+    act = torch.arange(q.shape[0], device=q.device)
+    for step in range(max_steps + 1):
+        live = live_fn(state) if step < max_steps else \
+            torch.zeros_like(act, dtype=torch.bool)
+        if not bool(live.all()):
+            fin = ~live
+            rows = act[fin]
+            for k in outputs:
+                out[k][rows] = state[k][fin]
+            if not bool(live.any()):
+                break
+            state = {k: v[live] for k, v in state.items()}
+            act = act[live]
+        step_fn(state)
+        state["steps"] += 1
+    return out
+
+
+def batched_beam_search(get_points, adj: torch.Tensor, queries: torch.Tensor,
+                        eps, *, ef: int, metric, capacity: int,
+                        expand: int = 1, max_steps: int = 2048,
+                        dedup: str = "bitmask",
+                        tie_bits: int = 0) -> SearchResult:
+    """The JAX ``batched_beam_search`` (``hnsw_itu_tpu/ops/search.py``
+    ``beam_search`` over a batch): search one graph layer for every query,
+    bit for bit the JAX contract on dists, ids, visited and steps.
+
+    Args:
+      get_points: ids (int64 tensor, clamped in range) -> points
+        [..., words] of the same leading shape.
+      adj: int32[>= capacity, W] padded adjacency; entries < 0 are "no edge".
+      queries: [B, words].
+      eps: int32[B] entries, or int32[B, E0] distinct seeds per query
+        (E0 <= ef).
+      ef: beam width (result size).
+      metric: the JAX ``Metric`` interface (``ops/metrics.py`` Hamming).
+      expand: E, the unexpanded beam entries expanded per step (C = E * W
+        candidates); a beam holds at most ``ef``, so E is cut to ef (the
+        JAX ``top_k`` refuses E > ef).
+      max_steps: expansion bound per query.
+      dedup: "bitmask" keeps one visited bit-vector per query
+        (``ops/bitset.py``, int32[B, ceil(capacity / 32)]); "beam" dedups
+        by id inside the merge.
+      tie_bits: > 0 orders equal distances by bit-reversed id.
+
+    The JAX ``get_nbr_pts`` (inline neighbor rows) is not ported: those
+    rows are a TPU memory layout that changes where points are read, never
+    which, and its one effect on results is that it forces
+    ``dedup="beam"``, which callers pass instead.
+
+    Two branches, as in JAX: the packed int32 key ``(d << id_bits) | id``
+    when the metric has a ``max_distance``, ``dedup == "beam"`` and the key
+    fits 31 bits; else the two-key ``(d, id)`` merge, sorted as two stable
+    planes. Queries run as a step loop over the batch; each stops when no
+    unexpanded entry is left or after ``max_steps`` expansions, and then
+    leaves the working set.
+    """
+    if dedup not in ("bitmask", "beam"):
+        raise ValueError(f"unknown dedup {dedup!r}")
+    if tie_bits and capacity > (1 << tie_bits):
+        raise ValueError(f"capacity={capacity} > 2**tie_bits")
+    if ef < 1:
+        raise ValueError(f"ef={ef} < 1")
+    B = queries.shape[0]
+    eps = (eps[:, None] if eps.dim() == 1 else eps).to(torch.int32)
+    if eps.shape[0] != B or not 1 <= eps.shape[1] <= ef:
+        raise ValueError(f"eps of shape {tuple(eps.shape)} for {B} queries "
+                         f"at ef={ef}")
+    kw = dict(ef=ef, metric=metric, capacity=capacity,
+              E=max(1, min(expand, ef)), max_steps=max_steps,
+              tie_bits=tie_bits)
+    if dedup == "beam":
+        max_d = metric.max_distance(queries)
+        if max_d is not None:
+            id_bits = max(1, (capacity - 1).bit_length())
+            if id_bits + (max_d + 1).bit_length() <= 31:
+                return _beam_packed(get_points, adj, queries, eps,
+                                    max_d=max_d, id_bits=id_bits, **kw)
+    return _beam_two_key(get_points, adj, queries, eps, dedup=dedup, **kw)
+
+
+def _candidates(adj, sel_raw, ok, capacity, fill):
+    """Neighbor ids [b, E * W] of the selected nodes, ``fill`` where a
+    slot holds no edge or no node was selected."""
+    nbr = adj[sel_raw.long().clamp(0, capacity - 1)]  # [b, E, W]
+    nbr = torch.where((nbr >= 0) & ok[:, :, None], nbr, fill)
+    return nbr.reshape(nbr.shape[0], -1)
+
+
+def _beam_two_key(get_points, adj, qs, eps, *, ef, metric, capacity, E,
+                  max_steps, dedup, tie_bits) -> SearchResult:
+    """The two-key branch (``hnsw_itu_tpu/ops/search.py:126-252``)."""
+    from . import bitset
+
+    dev = qs.device
+    B, E0 = eps.shape
+    inf = metric.inf
+    d0 = metric.one_to_many(qs, get_points(eps.long()))
+    i0 = _tie_enc(eps, tie_bits, torch.ones_like(eps, dtype=torch.bool))
+    d0, i0 = _sort2(d0, i0)
+    state = {
+        "q": qs,
+        "bd": torch.full((B, ef), inf, dtype=metric.dist_dtype, device=dev),
+        "bi": torch.full((B, ef), ID_INF, dtype=torch.int32, device=dev),
+        "bx": torch.zeros((B, ef), dtype=torch.bool, device=dev),
+        "nvis": torch.full((B,), E0, dtype=torch.int32, device=dev),
+        "steps": torch.zeros(B, dtype=torch.int32, device=dev),
+    }
+    state["bd"][:, :E0] = d0
+    state["bi"][:, :E0] = i0
+    if dedup == "bitmask":
+        state["vis"] = bitset.insert(
+            bitset.make(capacity, (B,), device=dev), eps,
+            torch.ones_like(eps, dtype=torch.bool))
+
+    def live(s):
+        bd = s["bd"]
+        front = (~s["bx"]) & (bd <= bd[:, ef - 1 : ef]) & (bd < inf)
+        return front.any(dim=1)
+
+    def step(s):
+        bd, bi, bx, q = s["bd"], s["bi"], s["bx"], s["q"]
+        b = bd.shape[0]
+        sel, pos = _select(bx, bd < inf, E)
+        ok = pos < ef
+        bx = bx | sel
+        sel_ids = torch.where(ok, bi.gather(1, pos.clamp(max=ef - 1)), ID_INF)
+        sel_raw = _tie_enc(sel_ids, tie_bits, sel_ids != ID_INF)
+        nid = _candidates(adj, sel_raw, ok, capacity, ID_INF)
+        C = nid.shape[1]
+        if dedup == "bitmask":
+            # dedup within the step (sorted: equal-to-previous are dupes),
+            # then against the visited set
+            nid = nid.sort(dim=1).values
+            fresh = (nid < capacity) & ~_first_dup(nid) \
+                & ~bitset.contains(s["vis"], nid)
+            s["vis"] = bitset.insert(s["vis"], nid, fresh)
+            s["nvis"] += fresh.sum(dim=1, dtype=torch.int32)
+            cd = metric.one_to_many(q, get_points(nid.long().clamp(
+                0, capacity - 1)))
+            cd = torch.where(fresh, cd, inf)
+            ci = _tie_enc(torch.where(fresh, nid, ID_INF), tie_bits, fresh)
+            md, mi, mx = _sort2(torch.cat([bd, cd], dim=1),
+                                torch.cat([bi, ci], dim=1),
+                                torch.cat([bx, torch.zeros_like(cd,
+                                           dtype=torch.bool)], dim=1))
+        else:
+            # visited-free: dedup by id inside the merge, keeping the
+            # expanded (or the beam's) copy first
+            valid = nid < capacity
+            cd = metric.one_to_many(q, get_points(nid.long().clamp(
+                0, capacity - 1)))
+            cd = torch.where(valid, cd, inf)
+            ci = _tie_enc(torch.where(valid, nid, ID_INF), tie_bits, valid)
+            mx = torch.cat([bx, torch.zeros_like(cd, dtype=torch.bool)], 1)
+            is_cand = torch.ones((b, ef + C), dtype=torch.bool, device=dev)
+            is_cand[:, :ef] = False
+            mi, _, md, mx, is_cand = _sort2(
+                torch.cat([bi, ci], dim=1), (~mx).to(torch.int32),
+                torch.cat([bd, cd], dim=1), mx, is_cand)
+            dup = _first_dup(mi)
+            s["nvis"] += ((~dup) & is_cand & (mi != ID_INF)).sum(
+                dim=1, dtype=torch.int32)
+            md = torch.where(dup, inf, md)
+            mi = torch.where(dup, ID_INF, mi)
+            md, mi, mx = _sort2(md, mi, mx & ~dup)
+        s["bd"], s["bi"], s["bx"] = md[:, :ef], mi[:, :ef], mx[:, :ef]
+
+    out = _run(state, live, step, max_steps, ("bd", "bi", "nvis", "steps"))
+    bi = out["bi"]
+    return SearchResult(out["bd"], _tie_enc(bi, tie_bits, bi != ID_INF),
+                        out["nvis"], out["steps"])
+
+
+def _beam_packed(get_points, adj, qs, eps, *, ef, metric, capacity, E,
+                 max_steps, tie_bits, max_d, id_bits) -> SearchResult:
+    """The packed-key branch (``hnsw_itu_tpu/ops/search.py:253-362``):
+    one int32 key ``(d << id_bits) | id`` per entry; equal id means equal
+    distance, so the dedup runs on the whole key."""
+    dev = qs.device
+    B, E0 = eps.shape
+    mask = (1 << id_bits) - 1
+    kinf = (max_d + 1) << id_bits
+    d0 = metric.one_to_many(qs, get_points(eps.long())).to(torch.int32)
+    i0 = _tie_enc(eps, tie_bits, torch.ones_like(eps, dtype=torch.bool))
+    bk = torch.full((B, ef), kinf, dtype=torch.int32, device=dev)
+    bk[:, :E0] = ((d0 << id_bits) | i0).sort(dim=1).values
+    state = {
+        "q": qs,
+        "bk": bk,
+        "bx": torch.zeros((B, ef), dtype=torch.bool, device=dev),
+        "nvis": torch.full((B,), E0, dtype=torch.int32, device=dev),
+        "steps": torch.zeros(B, dtype=torch.int32, device=dev),
+    }
+
+    def live(s):
+        bk = s["bk"]
+        front = (~s["bx"]) & (bk <= bk[:, ef - 1 : ef]) & (bk < kinf)
+        return front.any(dim=1)
+
+    def step(s):
+        bk, bx, q = s["bk"], s["bx"], s["q"]
+        b = bk.shape[0]
+        sel, pos = _select(bx, bk < kinf, E)
+        ok = pos < ef
+        bx = bx | sel
+        sel_keys = bk.gather(1, pos.clamp(max=ef - 1))
+        sel_ids = torch.where(ok & (sel_keys < kinf), sel_keys & mask, ID_INF)
+        sel_raw = _tie_enc(sel_ids, tie_bits, sel_ids != ID_INF)
+        nid = _candidates(adj, sel_raw, sel_ids != ID_INF, capacity, -1)
+        C = nid.shape[1]
+        cd = metric.one_to_many(q, get_points(nid.long().clamp(
+            0, capacity - 1))).to(torch.int32)
+        nid_o = _tie_enc(nid, tie_bits, nid >= 0)
+        ck = torch.where(nid >= 0, (cd << id_bits) | nid_o, kinf)
+        mk = torch.cat([bk, ck], dim=1)
+        mx = torch.cat([bx, torch.zeros_like(ck, dtype=torch.bool)], dim=1)
+        is_cand = torch.ones((b, ef + C), dtype=torch.bool, device=dev)
+        is_cand[:, :ef] = False
+        # sort by (key, not-expanded): the expanded (or the beam's) copy of
+        # an equal key comes first; every later copy is a dup
+        o = torch.argsort(mk.to(torch.int64) * 2 + (~mx).to(torch.int64),
+                          dim=1, stable=True)
+        mk, mx, is_cand = mk.gather(1, o), mx.gather(1, o), is_cand.gather(1, o)
+        dup = _first_dup(mk)
+        s["nvis"] += ((~dup) & is_cand & (mk < kinf)).sum(
+            dim=1, dtype=torch.int32)
+        mk = torch.where(dup, kinf, mk)
+        o = torch.argsort(mk, dim=1, stable=True)[:, :ef]
+        s["bk"], s["bx"] = mk.gather(1, o), (mx & ~dup).gather(1, o)
+
+    out = _run(state, live, step, max_steps, ("bk", "nvis", "steps"))
+    bk = out["bk"]
+    valid = bk < kinf
+    ids = _tie_enc(torch.where(valid, bk & mask, ID_INF), tie_bits, valid)
+    dists = torch.where(valid, bk >> id_bits, metric.inf)
+    return SearchResult(dists, ids, out["nvis"], out["steps"])
+
+
+def greedy_search(get_points, adj: torch.Tensor, queries: torch.Tensor, eps,
+                  *, metric, capacity: int, max_steps: int = 512):
+    """ef=1 greedy descent (the JAX ``greedy_search``): (dist, id) int32[B]
+    of each query's local minimum. The bitmask dedup it runs gives the
+    same nodes as ``dedup="beam"``: with one slot the beam's key only
+    falls, so a node it left can never come back."""
+    r = batched_beam_search(get_points, adj, queries, eps, ef=1,
+                            metric=metric, capacity=capacity, expand=1,
+                            max_steps=max_steps)
+    return r.dists[:, 0], r.ids[:, 0]

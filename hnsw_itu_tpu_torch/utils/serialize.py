@@ -1,12 +1,11 @@
-"""Index persistence (port of hnsw_itu_tpu/utils/serialize.py, the
-``hnsw`` kind of ``.npz`` format v1).
+"""Index persistence (port of hnsw_itu_tpu/utils/serialize.py: the
+``bruteforce``, ``nsw`` and ``hnsw`` kinds of ``.npz`` format v1).
 
-This is how a graph crosses between the packages: an index the JAX package
-saved loads here as tensors on the caller's device, and the other way
-round. ``from_numpy`` underneath turns host arrays into an ``HNSW``;
+This is how an index crosses between the packages: an index the JAX
+package saved loads here as tensors on the caller's device, and the other
+way round. ``from_numpy`` underneath turns host arrays into an ``HNSW``;
 ``builder_from_numpy`` turns a JAX builder's state, as host arrays, into a
-port ``HNSWBuilder`` at the same point of the build. The ``bruteforce``
-and ``nsw`` kinds are still to port (ROADMAP §1, item 6).
+port ``HNSWBuilder`` at the same point of the build.
 """
 
 from __future__ import annotations
@@ -19,7 +18,9 @@ import torch
 
 from ..graph import GraphArrays
 from ..models.base import IndexOptions
+from ..models.bruteforce import Bruteforce
 from ..models.hnsw import HNSW, HNSWBuilder, Level
+from ..models.nsw import NSW
 
 FORMAT_VERSION = 1
 
@@ -90,34 +91,40 @@ def builder_from_numpy(state: dict, opts: IndexOptions, device, *,
     return b
 
 
-def save_index(path, index: HNSW, attrs: ResultAttrs | None = None) -> None:
-    if not isinstance(index, HNSW):
-        raise NotImplementedError(
-            f"saving {type(index).__name__} is not ported yet "
-            "(ROADMAP §1, item 6)")
+def save_index(path, index, attrs: ResultAttrs | None = None) -> None:
+    """Save a ``Bruteforce``, ``NSW`` or ``HNSW`` as the JAX package
+    does."""
     attrs = attrs or ResultAttrs()
     meta = {
         "version": FORMAT_VERSION,
         "metric": index.metric.name,
         "attrs": asdict(attrs),
-        "opts": asdict(index.opts),
-        "kind": "hnsw",
-        "n": index.n,
-        "ep": index.ep,
-        "level_ns": index.level_ns,
+        "opts": asdict(getattr(index, "opts", IndexOptions())),
     }
     host = lambda t: t.cpu().numpy()  # noqa: E731
-    arrays = {
-        "points": host(index.points).view(np.uint32),
-        "adj": host(index.base.adj),
-        "deg": host(index.base.deg),
-    }
-    for l, lv in enumerate(index.levels):
-        arrays[f"l{l}_node_ids"] = host(lv.node_ids)
-        arrays[f"l{l}_down"] = host(lv.down)
-        arrays[f"l{l}_adj"] = host(lv.graph.adj)
-        arrays[f"l{l}_deg"] = host(lv.graph.deg)
-    if index.id_map is not None:
+    pts_u32 = lambda t: host(t).view(np.uint32)  # noqa: E731
+    if isinstance(index, Bruteforce):
+        meta["kind"] = "bruteforce"
+        meta["n"] = index.size()
+        arrays = {"points": np.concatenate(index._chunks,
+                                           axis=0)[: index.size()]}
+    elif isinstance(index, NSW):
+        meta.update(kind="nsw", n=index.n, ep=index.ep)
+        arrays = {"points": pts_u32(index.points),
+                  "adj": host(index.graph.adj), "deg": host(index.graph.deg)}
+    elif isinstance(index, HNSW):
+        meta.update(kind="hnsw", n=index.n, ep=index.ep,
+                    level_ns=index.level_ns)
+        arrays = {"points": pts_u32(index.points),
+                  "adj": host(index.base.adj), "deg": host(index.base.deg)}
+        for l, lv in enumerate(index.levels):
+            arrays[f"l{l}_node_ids"] = host(lv.node_ids)
+            arrays[f"l{l}_down"] = host(lv.down)
+            arrays[f"l{l}_adj"] = host(lv.graph.adj)
+            arrays[f"l{l}_deg"] = host(lv.graph.deg)
+    else:
+        raise TypeError(f"cannot serialize index type {type(index)!r}")
+    if getattr(index, "id_map", None) is not None:
         arrays["id_map"] = host(index.id_map)
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta).encode("utf-8"), dtype=np.uint8
@@ -133,16 +140,24 @@ def load_index(path, device):
         if meta.get("version") != FORMAT_VERSION:
             raise ValueError(
                 f"unsupported index format version {meta.get('version')}")
-        if meta["kind"] != "hnsw":
-            raise NotImplementedError(
-                f"loading a {meta['kind']!r} index is not ported yet "
-                "(ROADMAP §1, item 6)")
-        levels = [(z[f"l{l}_node_ids"], z[f"l{l}_down"], z[f"l{l}_adj"],
-                   z[f"l{l}_deg"]) for l in range(len(meta["level_ns"]))]
-        idx = from_numpy(z["points"], z["adj"], z["deg"], levels,
-                         meta["level_ns"], meta["ep"], meta["n"],
-                         IndexOptions(**meta["opts"]), device,
-                         metric=meta["metric"])
+        opts = IndexOptions(**meta["opts"])
+        kind = meta["kind"]
+        if kind == "bruteforce":
+            idx = Bruteforce(meta["metric"], device=device)
+            idx.extend(z["points"])
+            idx.build()
+        elif kind == "nsw":
+            idx = NSW(_t(z["points"], device), meta["n"],
+                      GraphArrays(_t(z["adj"], device), _t(z["deg"], device)),
+                      meta["ep"], meta["metric"], opts, device=device)
+        elif kind == "hnsw":
+            levels = [(z[f"l{l}_node_ids"], z[f"l{l}_down"], z[f"l{l}_adj"],
+                       z[f"l{l}_deg"]) for l in range(len(meta["level_ns"]))]
+            idx = from_numpy(z["points"], z["adj"], z["deg"], levels,
+                             meta["level_ns"], meta["ep"], meta["n"], opts,
+                             device, metric=meta["metric"])
+        else:
+            raise ValueError(f"unknown index kind {kind!r}")
         if "id_map" in z.files:
             idx.id_map = _t(z["id_map"], device)
     return idx, ResultAttrs(**meta["attrs"])

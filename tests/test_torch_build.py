@@ -34,6 +34,7 @@ from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
 from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches
 from hnsw_itu_tpu_torch.ops.select import select_neighbors
 from hnsw_itu_tpu_torch.utils import builder_from_numpy, make_dataset
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 N, NQ, K, EF = 2400, 48, 10, 32
 # batch_size 16: 256-row chunks from n = 1068 on, so scan_group 4 forms

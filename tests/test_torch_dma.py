@@ -24,6 +24,7 @@ from hnsw_itu_tpu_torch.ops.hamming import hamming_block, hamming_block_plain
 from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches
 from hnsw_itu_tpu_torch.ops.mini_search import DINF, IINF, split_keys
 from test_torch_kernels import gather_inputs, random_graph
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -213,7 +214,7 @@ def test_gather_wrapper_checks():
     adj, pts, _, qs, d0, seeds = [
         None if a is None else torch.from_numpy(
             np.ascontiguousarray(a).view(np.int32)) for a in case]
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError, match="general beam search"):
         dma_beam_search(adj, pts, None, qs, d0, seeds, ef=129)
     with pytest.raises(TypeError):
         dma_beam_search(adj.long(), pts, None, qs, d0, seeds, ef=8)

@@ -1,13 +1,17 @@
-"""Slice 1 end to end on CPU tensors: the port's host-built HNSW, its
-``.npz`` load of a JAX-saved index, its fused ``knns`` and its brute-force
-oracle, each bit-exact (tolerance 0) against ``hnsw_itu_tpu`` on the same
-numpy inputs."""
+"""The HNSW query side end to end on CPU tensors: the port's host-built
+HNSW, its ``.npz`` load of a JAX-saved index, its ``knns`` on the fused
+and the general routes, with the sampled entry and with the greedy
+descent, ``search``, and its brute-force oracle, each bit-exact
+(tolerance 0) against ``hnsw_itu_tpu`` on the same numpy inputs."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from hnsw_itu_tpu.graph import GraphArrays as JaxGraph
 from hnsw_itu_tpu.models import Bruteforce as JaxBruteforce
 from hnsw_itu_tpu.models import IndexOptions as JaxOptions
+from hnsw_itu_tpu.models.hnsw import HNSW as JaxHNSW
 from hnsw_itu_tpu.models.hnsw import HNSWBuilder as JaxBuilder
 from hnsw_itu_tpu.utils import load_index as jax_load
 from hnsw_itu_tpu.utils import save_index as jax_save
@@ -15,9 +19,11 @@ from hnsw_itu_tpu.utils.synth import make_dataset as jax_make_dataset
 from hnsw_itu_tpu_torch import native
 from hnsw_itu_tpu_torch.models import Bruteforce, IndexOptions
 from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
+from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
 from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
 from hnsw_itu_tpu_torch.utils import (from_numpy, load_index, make_dataset,
                                       recall_at_k, save_index)
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 N, NQ, K, EF, SAMPLE = 2000, 64, 10, 32, 64
 OPTS = dict(ef_construction=48, connections=12, max_connections=24, size=N,
@@ -146,31 +152,97 @@ def test_bruteforce_matches_jax():
     np.testing.assert_array_equal(got.dists.numpy(), d_host)
 
 
-def test_deferred_paths_raise(port_index, data):
+@pytest.fixture(scope="module")
+def jax_loaded(jax_index):
+    """Fresh JAX indexes loaded from the saved .npz: (without tables: the
+    general route with bitmask dedup, with enable_inline(): inline rows,
+    the general route with beam dedup)."""
+    plain, _ = jax_load(str(jax_index[1]))
+    inline, _ = jax_load(str(jax_index[1]))
+    inline.enable_inline()
+    assert inline.adj_pts is not None and inline.level_adj_pts is not None
+    return plain, inline
+
+
+def _run(idx, qs, k, ef, *, sample=0, expand=1):
+    """knns as numpy: (dists, ids, visited, steps)."""
+    idx.query_entry_sample, idx.query_expand = sample, expand
+    r = idx.knns(qs, k, ef)
+    return (np.asarray(r.dists), np.asarray(r.ids),
+            np.asarray(idx.last_stats["visited_q"]),
+            np.asarray(idx.last_stats["steps_q"]))
+
+
+@pytest.mark.parametrize("case", ["descent", "ef129", "reorder", "expand"])
+def test_deferred_paths_raise(port_index, jax_loaded, data, case):
+    """Paths that once raised now serve, each equal to the JAX route it
+    ports: the greedy descent (query_entry_sample=0) before the fused
+    kernel; ef > 128 and query_expand=2 on the general route (the port's
+    fused table leaves the general route on bitmask dedup, as a JAX index
+    without inline rows). The BFS reorder still raises."""
+    jplain, jinline = jax_loaded
     idx = port_index
     idx.enable_inline()
-    idx.query_entry_sample = 0
-    with pytest.raises(NotImplementedError, match="greedy descent"):
-        idx.knns(data[1][:4], K, EF)
-    idx.query_entry_sample = SAMPLE
-    with pytest.raises(NotImplementedError, match="ef > 128"):
-        idx.knns(data[1][:4], K, 129)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        HNSWBuilder(IndexOptions(**{**OPTS, "reorder": True}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    assert idx.fused is not None
+    if case == "reorder":
+        with pytest.raises(NotImplementedError, match="item 6"):
+            HNSWBuilder(IndexOptions(**{**OPTS, "reorder": True}),
+                        device="cpu")
+        return
+    if case == "descent":
+        calls = dma_beam_search.plain_calls
+        got = _run(idx, data[1], K, EF)
+        # kernel #6's plain route ran the descent, one call per level
+        assert dma_beam_search.plain_calls == calls + len(idx.levels)
+        assert idx.last_route == "fused"
+        want = _run(jinline, data[1], K, EF)
+    elif case == "ef129":
+        got = _run(idx, data[1], K, 129, sample=SAMPLE)
+        assert idx.last_route == "general"
+        want = _run(jplain, data[1], K, 129, sample=SAMPLE)
+    else:
         HNSWBuilder(IndexOptions(**{**OPTS, "expand": 2}), device="cpu")
+        got = _run(idx, data[1], K, EF, expand=2)
+        idx.query_expand = 1
+        assert idx.last_route == "general"
+        want = _run(jplain, data[1], K, EF, expand=2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
-def test_unfusable_index_refuses_queries(data):
-    """An adjacency wider than the kernel's 128 lanes gets no fused table;
-    knns then refuses instead of running another algorithm."""
+def test_search_one_query(port_index, jax_loaded, data):
+    """HNSW.search: one query, the greedy descent, the JAX result."""
+    jplain, _ = jax_loaded
+    for idx in (port_index, jplain):
+        idx.query_entry_sample, idx.query_expand = 0, 1
+    got = port_index.search(data[1][3], K, EF)
+    want = jplain.search(data[1][3], K, EF)
+    assert got.ids.shape == (K,)
+    np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+
+
+@pytest.mark.parametrize("sample", [SAMPLE, 0])
+def test_unfusable_index_refuses_queries(data, sample):
+    """An adjacency wider than the kernel's 128 lanes gets no fused or mini
+    table; enable_inline records the JAX inline rows instead and knns runs
+    the general route with beam dedup, equal to the JAX index."""
     pts = data[0][:300]
     adj = np.full((300, 130), -1, np.int32)
     adj[:, 0] = (np.arange(300) + 1) % 300
-    idx = from_numpy(pts, adj, (adj >= 0).sum(1).astype(np.int32), [], [],
-                     0, 300, IndexOptions(size=300), "cpu")
+    adj[:, 1] = (np.arange(300) * 7 + 3) % 300
+    deg = (adj >= 0).sum(1).astype(np.int32)
+    idx = from_numpy(pts, adj, deg, [], [], 0, 300, IndexOptions(size=300),
+                     "cpu")
     idx.enable_inline()
-    assert idx.fused is None
-    idx.query_entry_sample = SAMPLE
-    with pytest.raises(NotImplementedError, match="no fused or mini table"):
-        idx.knns(data[1][:4], K, EF)
+    assert idx.fused is None and idx.mini is None and idx.inline_rows
+    jidx = JaxHNSW(jnp.asarray(pts), 300,
+                   JaxGraph(jnp.asarray(adj), jnp.asarray(deg)), [], [], 0,
+                   "hamming", JaxOptions(size=300))
+    jidx.enable_inline()
+    assert jidx.adj_pts is not None
+    got = _run(idx, data[1], K, EF, sample=sample)
+    assert idx.last_route == "general"
+    want = _run(jidx, data[1], K, EF, sample=sample)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

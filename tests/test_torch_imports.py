@@ -2,8 +2,9 @@
 loads in a process where ``import jax`` fails, and none of them pulls in
 ``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel. The modules
 that port code of a JAX module (the mini-table search, the build's
-kernels, select-neighbors, the graph mutations and the build steps) are
-also checked alone."""
+kernels, select-neighbors, the graph mutations, the build steps, the
+visited bitmask, the general beam search and the NSW index) are also
+checked alone."""
 
 import os
 import subprocess
@@ -63,6 +64,8 @@ def test_mini_search_imports_alone_without_jax():
 
 
 @pytest.mark.parametrize("module", ["ops.dma_search", "ops.hamming",
-                                    "ops.select", "graph", "models._build"])
+                                    "ops.select", "graph", "models._build",
+                                    "ops.bitset", "ops.search",
+                                    "models.nsw"])
 def test_build_modules_import_alone_without_jax(module):
     _imports_alone(module)

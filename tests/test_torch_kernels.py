@@ -53,6 +53,18 @@ MINI_CASES = [(64, 48, 3), (64, 96, 7), (32, 32, 3), (32, 48, 31),
               (32, 64, 31), (64, 128, 7), (32, 96, 7)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread while a module runs. pytest-xdist runs
+    several worker processes on the same cores; a thread pool as wide as
+    the machine in each of them makes every worker many times slower.
+    Modules that import this fixture get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fused_inputs(pts, adj, qs, id_bits, max_d, device):
     """(table, queries, init keys) entering every query at node 0."""
     p, q = as_sketches(pts, device), as_sketches(qs, device)

@@ -15,6 +15,7 @@ from hnsw_itu_tpu_torch.ops.entry import sampled_entry, strided_sample_ids
 from hnsw_itu_tpu_torch.ops.metrics import (as_sketches, get_metric,
                                             popcount, unpack_bits)
 from hnsw_itu_tpu_torch.ops.topk import inverse_permutation, merge_min_k
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 JM = jax_get_metric("hamming")
 TM = get_metric("hamming")

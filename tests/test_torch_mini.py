@@ -21,6 +21,7 @@ from hnsw_itu_tpu.ops.metrics import get_metric as jax_metric
 from hnsw_itu_tpu.ops.search import batched_beam_search
 from hnsw_itu_tpu_torch.models import IndexOptions
 from hnsw_itu_tpu_torch.models import hnsw as port_hnsw
+from hnsw_itu_tpu_torch.models import nsw as port_nsw
 from hnsw_itu_tpu_torch.models.nsw import _mini_config_for
 from hnsw_itu_tpu_torch.ops.entry import sampled_entry, sampled_entry_topk
 from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches, popcount_sum
@@ -30,6 +31,7 @@ from hnsw_itu_tpu_torch.ops.mini_search import (DINF, IINF, bitrev_ids,
                                                 rerank_exact, rerank_onehop)
 from hnsw_itu_tpu_torch.utils import make_dataset
 from test_torch_kernels import MINI_CASES, mini_inputs, random_graph
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 INT32_MAX = np.iinfo(np.int32).max
 CAP, WORDS, B = 256, 32, 32
@@ -278,7 +280,7 @@ def mini_indexes():
         jidx = b.build()
         jidx.enable_inline()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_hnsw, "_fused_query_eligible", lambda *a, **kw: False)
+        mp.setattr(port_nsw, "_fused_query_eligible", lambda *a, **kw: False)
         b = port_hnsw.HNSWBuilder(IndexOptions(**OPTS), device="cpu")
         b.extend_batched(pts)
         pidx = b.build()
@@ -307,6 +309,30 @@ def test_knns_mini_path_matches_jax(mini_indexes, ef, hop, beams, tie,
     calls = mini_beam_search.plain_calls
     got = pidx.knns(qs, K, ef)
     assert mini_beam_search.plain_calls == calls + 1
+    np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    for key in ("visited_q", "steps_q"):
+        np.testing.assert_array_equal(pidx.last_stats[key],
+                                      jidx.last_stats[key])
+
+
+def test_knns_mini_path_descent_matches_jax(mini_indexes, monkeypatch):
+    """The mini path entered through the greedy descent
+    (query_entry_sample=0): the port's descent on kernel #6's plain route,
+    the JAX descent on its level inline rows (beam dedup)."""
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+
+    jidx, pidx, qs = mini_indexes
+    monkeypatch.setenv("HNSW_TPU_MINI_INTERPRET", "1")
+    assert jidx.level_adj_pts is not None
+    for idx in (jidx, pidx):
+        idx.query_hop, idx.query_entry_beams, idx.query_tie = 0, 1, "auto"
+        monkeypatch.setattr(idx, "query_entry_sample", 0)
+    want = jidx.knns(qs, K, 32)
+    calls = dma_beam_search.plain_calls
+    got = pidx.knns(qs, K, 32)
+    assert pidx.last_route == "mini"
+    assert dma_beam_search.plain_calls == calls + len(pidx.levels) > calls
     np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
     for key in ("visited_q", "steps_q"):

@@ -19,6 +19,7 @@ from hnsw_itu_tpu_torch.ops.metrics import as_sketches
 from hnsw_itu_tpu_torch.ops.search import beam_search_packed
 from hnsw_itu_tpu_torch.testing import FUSED_EDGES, fused_edge_inputs
 from test_torch_kernels import PAIRS, fused_inputs, random_graph
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 INT32_MAX = np.iinfo(np.int32).max
 
