@@ -38,15 +38,17 @@ Run from the root of a checkout. Phases, each printed as it ends:
      bound and the resident warps; then the ef sweep (32 to 128 at 32
      steps), each point also against the plain version;
   7. the mini path, with the 100k index freed: make_dataset(0, mini_n,
-     nq), the host build (capacity at least 2.2M rows, past the 2^21
-     ids an int32 packed key holds, so the policy refuses the fused table
-     by itself), the oracle, enable_inline() picking the mini table, and
-     knns at k=10, ef=32 (sampled entry 1024, max_steps auto): warm run,
-     best of 3, recall@10 >= 0.93; then ef=96 (beam capacity 128) and one
-     call with 4 entry seeds, a one-hop rerank of 8 and the bit-reversed
-     tie order; the mini kernel launched at both capacities and the plain
-     version never called; then recall@10 at ef=32 and 64 with a
-     65,536-point entry sample (the JAX package's own 2M run's);
+     nq) built on the card as phase 9 builds (a 50k native warmup, then
+     device chunks on the gather and Hamming block kernels) into at least
+     2.2M rows, past the 2^21 ids an int32 packed key holds, so the
+     policy refuses the fused table by itself; the oracle,
+     enable_inline() picking the mini table, and knns at k=10, ef=32
+     (sampled entry 1024, max_steps auto): warm run, best of 3,
+     recall@10 >= 0.93; then ef=96 (beam capacity 128) and one call with
+     4 entry seeds, a one-hop rerank of 8 and the bit-reversed tie order;
+     the mini kernel launched at both capacities and the plain version
+     never called; then recall@10 at ef=32 and 64 with the 1024-point and
+     the 65,536-point entry sample (the JAX package's own 2M run's);
   8. mini kernel against the plain version at the slice shapes: every
      query at ef=32 and ef=96, and with 4 seeds and tie_bits; both timed,
      its resident warps, both byte counts of its bound (whole rows, and
@@ -94,6 +96,34 @@ Run from the root of a checkout. Phases, each printed as it ends:
      and served through the general route and the fused path, recall@10
      >= 0.93 on both.
 
+ 14. the CLI on the card, on phase 12's index saved to .npz (then
+     freed): ``python -m hnsw_itu_tpu_torch.cli inspect`` as a subprocess
+     (rc 0, every layer's degree percentiles, the host-BFS connectivity
+     line); load_index on the card and the CLI's query_points at k=10,
+     ef=96: ids and dists equal to phase 12's knns, then its sort and pad
+     and recall@10 >= 0.93; -S (the native host engine, one thread) on
+     1000 queries, recall@10 >= 0.93, timed. The card machine has no
+     h5py: the HDF5 subcommands run in the CPU tests;
+ 15. the BFS reorder: a from_numpy copy of phase 11's 1M index reordered
+     and served on its own fused table (k=10, ef=32, sampled entry): ids
+     in the original space, recall@10 >= 0.93, tie-tolerant recall within
+     0.005 of the unreordered index's, the fused kernel launched and its
+     plain version never called, then held against it on every query;
+     and a copy of phase 7's mini index reordered (its own mini table;
+     tie_bits auto = the capacity's bits): knns recall@10 at ef=32, the
+     mini kernel against its plain version on every query at those tie
+     bits; each timed beside the unreordered index;
+ 16. the other metrics: l2 on L2_N float32 points of L2_DIM dimensions
+     (make_l2_dataset), built on the card at the bench's options (no
+     native warmup; every search on the general beam search, neither
+     Hamming kernel launched), the oracle Bruteforce("l2") on the card,
+     knns at k=10, ef=96 through the greedy descent: recall@10 >= 0.93,
+     the device busy share of one batch, and the same call on CPU copies
+     for 256 queries (dists within rtol 1e-5, ids equal where untied);
+     l2int: the point3d example on the card, its golden distances.
+
+Every phase's seconds are logged (``phase seconds``).
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero
 without that line; so does a machine without CUDA, and a directory
@@ -108,6 +138,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -144,6 +175,9 @@ CLI_OPTS = dict(ef_construction=96, connections=24, max_connections=256,
 CLI_EF = 96  # the CLI's -e default
 PARITY_Q = 256  # queries of the CUDA-vs-CPU check of the general route
 NSW_N = 100_000  # points of the NSW phase
+# phase 16's l2 cell: the width of the SISAP 2023 LAION clip768 embeddings
+# that the sketches binarize, at one of that task's sizes (100K)
+L2_N, L2_DIM = 100_000, 768
 # the JAX package's own 2M mini-path run used this entry sample
 # (benches/results_2m.json: recall@10 0.9703 at ef=32, 0.9833 at ef=64)
 MINI_WIDE_SAMPLE = 65_536
@@ -301,30 +335,30 @@ def phase_small_graphs(dev) -> int:
     return worst
 
 
-def phase_build(n, nq, dev, *, cap=None, tag="3"):
-    """make_dataset + the native host build of ``n`` points into an index
-    of ``cap`` rows (default ``n``)."""
+def phase_build(n, nq, dev):
+    """make_dataset + the native host build of ``n`` points."""
     from hnsw_itu_tpu_torch.models import IndexOptions
     from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
     from hnsw_itu_tpu_torch.utils import make_dataset
 
     t0 = time.perf_counter()
     pts, qs = make_dataset(0, n, nq)
-    log(f"[{tag}] make_dataset(0, {n}, {nq}): "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[3] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b = HNSWBuilder(IndexOptions(ef_construction=96, connections=24,
-                                 max_connections=64, size=cap or n,
+                                 max_connections=64, size=n,
                                  batch_size=256, host_warmup=n), device=dev)
     b.extend_batched(pts)
     index = b.build()
-    log(f"[{tag}] host build (native engine) of {n} points into "
-        f"{cap or n} rows + upload: {time.perf_counter() - t0:.1f} s, "
-        f"levels {index.level_ns}, ep {index.ep}")
+    log(f"[3] host build (native engine) of {n} points + upload: "
+        f"{time.perf_counter() - t0:.1f} s, levels {index.level_ns}, ep "
+        f"{index.ep}")
     return pts, qs, index
 
 
-def phase_oracle(pts, qs, dev, tag="4"):
+def phase_oracle(pts, qs, dev, tag="4", with_dists=False):
+    """Exact k=10 ground truth on the card: ids, and with ``with_dists``
+    (ids, dists)."""
     import numpy as np
     import torch
 
@@ -344,7 +378,7 @@ def phase_oracle(pts, qs, dev, tag="4"):
         raise AssertionError("oracle distances != native host scan")
     log(f"[{tag}] oracle distances equal the native host scan on 256 "
         "queries")
-    return gt_i
+    return (gt_i, gt_d) if with_dists else gt_i
 
 
 def phase_query(index, qs, gt_i, dev):
@@ -504,6 +538,17 @@ def mini_seeds(points, q, n, mw, beams):
     d0 = popcount_sum(points[eps.long(), :mw] ^ q[:, None, :mw])
     order = torch.argsort(d0.min(dim=1).values, stable=True)
     return q[order].contiguous(), d0[order], eps[order]
+
+
+def mini_bytes(st, visited, B, W, mw, ef):
+    """Bytes a mini search must move, two counts: each expansion's W ids,
+    queries and seeds in, keys and counts out, and either every valid
+    neighbor's prefix (a whole-row read) or each fresh neighbor's prefix
+    only (the ids-first read the kernel does: its bound)."""
+    io = B * mw * 4 + B * 8 + B * ef * 8 + B * 8
+    fresh = int(visited.long().sum()) - B
+    return (st["rows"] * W * 4 + st["edges"] * mw * 4 + io,
+            st["rows"] * W * 4 + fresh * mw * 4 + io)
 
 
 def mini_vs_plain(table, q, d0, eps, *, ef, max_steps, tie_bits=0,
@@ -787,14 +832,16 @@ def phase_mini_query(index, qs, gt_i, dev):
     index.query_entry_beams, index.query_hop = 1, 0
     index.query_tie = "auto"
     # ROADMAP §3: the entry sample of the JAX package's own 2M mini run
-    index.query_entry_sample = MINI_WIDE_SAMPLE
-    out["wide_sample"] = {}
-    for ef in (32, 64):
-        rec, vis, steps = run(ef)
-        out["wide_sample"][ef] = rec
-        log(f"[7] knns ef={ef} with a {MINI_WIDE_SAMPLE}-point entry "
-            f"sample: recall@10 {rec:.4f}, visited/q {vis:.1f}, steps/q "
-            f"{steps:.2f}")
+    # beside the bench's
+    out["samples"] = {}
+    for sample in (SAMPLE, MINI_WIDE_SAMPLE):
+        index.query_entry_sample = sample
+        for ef in (32, 64):
+            rec, vis, steps = run(ef)
+            out["samples"][f"{sample}/{ef}"] = rec
+            log(f"[7] knns ef={ef} with a {sample}-point entry sample: "
+                f"recall@10 {rec:.4f}, visited/q {vis:.1f}, steps/q "
+                f"{steps:.2f}")
     index.query_entry_sample = SAMPLE
     return out
 
@@ -820,14 +867,7 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
     qs_o, d0, eps = mini_seeds(index.points, q_all, index.n, mw, 1)
 
     def bounds(st, visited, ef):
-        """Bytes the search must move, two counts: each expansion's W ids,
-        queries and seeds in, keys and counts out, and either every valid
-        neighbor's prefix (a whole-row read) or each fresh neighbor's
-        prefix only (the ids-first read the kernel does: its bound)."""
-        io = B * mw * 4 + B * 8 + B * ef * 8 + B * 8
-        fresh = int(visited.long().sum()) - B
-        return (st["rows"] * W * 4 + st["edges"] * mw * 4 + io,
-                st["rows"] * W * 4 + fresh * mw * 4 + io)
+        return mini_bytes(st, visited, B, W, mw, ef)
 
     out, worst = {}, 0
     for ef in MINI_EFS:
@@ -896,11 +936,26 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
         f"{tie_bits}): kernel vs plain max |diff| {err}")
     if err:
         raise AssertionError("mini kernel != plain with 4 seeds and ties")
+    # one seed at those tie bits: phase 15's reordered index against this
+    # tells the tie order's cost from the relabel's
+    kw = dict(ef=EF, mini_words=mw, max_steps=index._steps_cap(EF),
+              tie_bits=tie_bits)
+    err, _ = mini_vs_plain(table, qs_o, d0, eps, **{
+        k: v for k, v in kw.items() if k != "mini_words"})
+    worst = max(worst, err)
+    out["tie_bits_ms"] = cuda_ms(lambda: mini_beam_search(
+        table, qs_o, d0, eps, **kw), 10)
+    log(f"[8] on {smi}: {B} queries, ef={EF}, one seed, tie_bits "
+        f"{tie_bits}: mini kernel {out['tie_bits_ms']:.3f} ms (tie_bits 0: "
+        f"{out[EF]['ms']:.3f} ms), kernel vs plain max |diff| {err}")
+    if err:
+        raise AssertionError("mini kernel != plain with bit-reversed ties")
     return worst, out, sweep
 
 
-def phase_device_build(n, nq, dev):
-    """make_dataset + HNSWBuilder.extend_batched at the bench's options: the
+def phase_device_build(n, nq, dev, *, cap=None, tag="9"):
+    """make_dataset + HNSWBuilder.extend_batched of ``n`` points into an
+    index of ``cap`` rows (default ``n``) at the bench's options: the
     native host warmup, then the device chunks (gather kernel, Hamming
     block kernel). Returns (pts, qs, index, record)."""
     import torch
@@ -914,8 +969,9 @@ def phase_device_build(n, nq, dev):
 
     t0 = time.perf_counter()
     pts, qs = make_dataset(0, n, nq)
-    log(f"[9] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
-    opts = IndexOptions(size=n, **{**BUILD_OPTS, "host_warmup": min(
+    log(f"[{tag}] make_dataset(0, {n}, {nq}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    opts = IndexOptions(size=cap or n, **{**BUILD_OPTS, "host_warmup": min(
         BUILD_OPTS["host_warmup"], n)})
     b = HNSWBuilder(opts, device=dev)
     b.timings = {}
@@ -944,7 +1000,7 @@ def phase_device_build(n, nq, dev):
     dev_s = t1 - warm_done[0]
     rec.update(host_s=host_s, device_s=dev_s, finish_s=t2 - t1,
                level_ns=index.level_ns, edge_drops=b.total_edge_drops())
-    log(f"[9] build of {n} points, {opts}: host warmup (native engine, "
+    log(f"[{tag}] build of {n} points, {opts}: host warmup (native engine, "
         f"{opts.host_warmup} points, + upload) {host_s:.1f} s, device "
         f"chunks {dev_s:.1f} s, build() (spill drain, level trim) "
         f"{t2 - t1:.2f} s; levels {index.level_ns}, ep {index.ep}, "
@@ -954,10 +1010,10 @@ def phase_device_build(n, nq, dev):
     for name in ("entry", "search", "select", "apply"):
         k = len(b.timings.get(name, ()))
         ms = spans.get(name, 0.0)
-        log(f"[9]   {name:6s} {ms:10.1f} ms over {k} spans "
+        log(f"[{tag}]   {name:6s} {ms:10.1f} ms over {k} spans "
             f"({ms / max(1, k):.3f} ms each; CUDA events, device timeline "
             "incl. launch gaps)")
-    log(f"[9] gather kernel launches {rec['dma_launches']}, plain_calls "
+    log(f"[{tag}] gather kernel launches {rec['dma_launches']}, plain_calls "
         f"{rec['dma_plain']}; hamming block launches {rec['ham_launches']}, "
         f"plain_calls {rec['ham_plain']}")
     if min(rec["dma_launches"], rec["ham_launches"]) <= 0 or \
@@ -965,7 +1021,7 @@ def phase_device_build(n, nq, dev):
         raise AssertionError(f"device build did not run on the kernels: {rec}")
     want = JAX_LEVEL_NS.get(n)
     if want is not None:
-        log(f"[9] level_ns {index.level_ns} vs the JAX package's {want}: "
+        log(f"[{tag}] level_ns {index.level_ns} vs the JAX package's {want}: "
             f"{'equal' if index.level_ns == want else 'DIFFERENT'}")
         if index.level_ns != want:
             raise AssertionError("level sizes differ from the JAX package's")
@@ -1129,7 +1185,7 @@ def phase_build_query(index, pts, qs, dev, smi):
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.utils import recall_at_k
 
-    gt_i = phase_oracle(pts, qs, dev, tag="11")
+    gt_i, gt_d = phase_oracle(pts, qs, dev, tag="11", with_dists=True)
     nq = len(qs)
     index.query_entry_sample = SAMPLE
     index.max_steps = None  # the bench's rule past 200k: max(2 ef, 64)
@@ -1174,7 +1230,7 @@ def phase_build_query(index, pts, qs, dev, smi):
                                     max_steps=index._steps_cap(EF))
     del kernel["entry"]
     return {"recall": rec, "knns_ms": best * 1e3, "launches": launches,
-            "kernel": kernel, "gt_i": gt_i}
+            "kernel": kernel, "gt_i": gt_i, "gt_d": gt_d}
 
 
 def gather_bytes(rows, fresh, B, W, words, ef):
@@ -1520,7 +1576,7 @@ def phase_cli_default(pts, qs, gt_i, dev, smi):
         f"steps {'equal' if same else 'DIFFERENT'}")
     if not same:
         raise AssertionError("general route on CUDA != on CPU")
-    return rec
+    return rec, index, (ids, dists)
 
 
 def phase_nsw(nq, dev):
@@ -1580,6 +1636,392 @@ def phase_nsw(nq, dev):
     return rec
 
 
+def best_of_3(fn):
+    """(best host-clock seconds of 3 runs after a warm one, last result)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, res
+
+
+def index_copy(index, dev):
+    """A fresh ``HNSW`` of the same arrays (``utils/serialize.py``
+    ``from_numpy``), without the tables ``index`` holds."""
+    from hnsw_itu_tpu_torch.utils import from_numpy
+
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    return from_numpy(
+        host(index.points), host(index.base.adj), host(index.base.deg),
+        [(host(lv.node_ids), host(lv.down), host(lv.graph.adj),
+          host(lv.graph.deg)) for lv in index.levels],
+        index.level_ns, index.ep, index.n, index.opts, dev)
+
+
+def phase_reorder_fused(index, qs, gt_i, gt_d, dev, smi):
+    """Phase 15, fused path: a reordered copy of the 1M device-built index
+    (phase 11) on its fused table, k=10, ef=32 with the sampled entry as
+    phase 11 serves it: ids in the original space, recall@10 >= 0.93,
+    tie-tolerant recall within 0.005 of the unreordered index's, #1
+    launched and its plain version never called; #1 against its plain
+    version on every query; both indexes' knns timed."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.utils import recall_at_k, recall_tie_tolerant
+
+    nq = len(qs)
+    q = as_sketches(qs, dev)
+
+    def serve(idx):
+        idx.query_entry_sample = SAMPLE
+        idx.max_steps = None
+        idx.query_batch = max(10240, nq)
+        return best_of_3(lambda: idx.knns(q, K, EF))
+
+    def quality(res):
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all():
+            raise AssertionError("bad result on the reordered index")
+        return (recall_at_k(ids, gt_i, K),
+                recall_tie_tolerant(dists, gt_d, K))
+
+    base_s, res = serve(index)
+    rec0, tt0 = quality(res)
+    t0 = time.perf_counter()
+    r = index_copy(index, dev)
+    r.reorder()
+    torch.cuda.synchronize()
+    reorder_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.enable_inline()
+    torch.cuda.synchronize()
+    if r.fused is None or r.id_map is None:
+        raise AssertionError("the reordered copy has no fused table")
+    log(f"[15] reordered copy of the {index.n}-point index (from_numpy + "
+        f"BFS reorder): {reorder_s:.1f} s, fused table "
+        f"{time.perf_counter() - t0:.2f} s")
+    fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    re_s, res = serve(r)
+    launches = fused_beam_search.kernel_launches
+    plain = fused_beam_search.plain_calls
+    rec, tt = quality(res)
+    base_s = min(base_s, serve(index)[0])  # before and after, in turns
+    log(f"[15] knns k={K} ef={EF}, sampled entry {SAMPLE}, route "
+        f"{r.last_route}: reordered {re_s * 1e3:.2f} ms, recall@10 "
+        f"{rec:.4f}, tie-tolerant {tt:.4f}; unreordered {base_s * 1e3:.2f} "
+        f"ms, recall@10 {rec0:.4f}, tie-tolerant {tt0:.4f}; fused launches "
+        f"{launches}, plain_calls {plain}")
+    if r.last_route != "fused" or launches <= 0 or plain:
+        raise AssertionError(f"reordered fused path: route {r.last_route}, "
+                             f"launches {launches}, plain {plain}")
+    if rec < RECALL_GATE or abs(tt - tt0) > 0.005:
+        raise AssertionError(f"reordered recall@10 {rec:.4f}, tie-tolerant "
+                             f"{tt:.4f} vs {tt0:.4f}")
+    kernel = fused_at_served_shapes(r, qs, dev, smi, tag="15",
+                                    max_steps=r._steps_cap(EF))
+    del kernel["entry"]
+    if not np.isfinite(kernel["ms"]):
+        raise AssertionError("fused kernel not timed")
+    return {"launches": launches, "knns_ms": re_s * 1e3,
+            "unreordered_knns_ms": base_s * 1e3, "recall": rec,
+            "unreordered_recall": rec0, "tie_tolerant": tt,
+            "unreordered_tie_tolerant": tt0, "reorder_s": reorder_s,
+            **kernel}
+
+
+def phase_reorder_mini(index, qs, gt_i, dev, smi, base_ms):
+    """Phase 15, mini path: the 2.2M index of phase 7 copied, its own mini
+    table freed, the copy reordered and served on its mini table with the
+    bit-reversed tie order (``tie_bits`` auto = the capacity's bits): knns
+    at k=10, ef=32, the mini kernel launched and its plain version never
+    called; then the kernel against its plain version on every query at
+    those tie bits (d, ids, visited, steps), both timed with the bound.
+    ``base_ms`` is the unreordered index's knns time (phase 7)."""
+    import gc
+
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.ops.mini_search import (mini_beam_search,
+                                                    mini_beam_search_plain)
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    nq = len(qs)
+    W, mw = index.mini_W, index.mini_words
+    r = index_copy(index, dev)
+    index.mini = None  # one 18 GB table at a time: the same policy pick
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r.reorder()
+    torch.cuda.synchronize()
+    reorder_s = time.perf_counter() - t0
+    r.query_entry_sample = SAMPLE
+    r.max_steps = None
+    r.query_batch = max(10240, nq)
+    r.enable_inline()
+    if r.mini is None or (r.mini_W, r.mini_words) != (W, mw):
+        raise AssertionError(f"reordered copy's table: W={r.mini_W}, "
+                             f"mw={r.mini_words}, want W={W}, mw={mw}")
+    tie_bits = r._tie_bits()
+    cap_bits = (r.base.capacity - 1).bit_length()
+    q = as_sketches(qs, dev)
+    mini_beam_search.kernel_launches = mini_beam_search.plain_calls = 0
+    best, res = best_of_3(lambda: r.knns(q, K, EF))
+    launches = mini_beam_search.kernel_launches
+    plain = mini_beam_search.plain_calls
+    ids = res.ids.cpu().numpy()
+    rec = recall_at_k(ids, gt_i, K)
+    log(f"[15] reordered {r.n}-point copy ({reorder_s:.1f} s), mini table "
+        f"W={W} mw={mw}, tie_bits {tie_bits} (capacity bits {cap_bits}): "
+        f"knns k={K} ef={EF} {best * 1e3:.2f} ms (unreordered "
+        f"{base_ms:.2f} ms), recall@10 {rec:.4f}; mini launches {launches}, "
+        f"plain_calls {plain}")
+    if tie_bits != cap_bits or launches <= 0 or plain or \
+            not ((ids >= 0) & (ids < r.n)).all():
+        raise AssertionError(f"reordered mini path: tie_bits {tie_bits}, "
+                             f"launches {launches}, plain {plain}")
+    qs_o, d0, eps = mini_seeds(r.points, q, r.n, mw, 1)
+    steps = r._steps_cap(EF)
+    st = {}
+    err, got = mini_vs_plain(r.mini, qs_o, d0, eps, ef=EF, max_steps=steps,
+                             tie_bits=tie_bits, stats=st)
+    if err:
+        raise AssertionError("mini kernel != plain on the reordered index")
+    kw = dict(ef=EF, mini_words=mw, max_steps=steps, tie_bits=tie_bits)
+    k_ms = cuda_ms(lambda: mini_beam_search(r.mini, qs_o, d0, eps, **kw), 10)
+    p_ms = cuda_ms(lambda: mini_beam_search_plain(r.mini, qs_o, d0, eps,
+                                                  **kw), 2)
+    b_ms = bound_ms(mini_bytes(st, got[2], nq, W, mw, EF)[1])
+    log(f"[15] on {smi}: {nq} queries, ef={EF}, tie_bits {tie_bits}: mini "
+        f"kernel vs plain max |diff| {err} over d, ids, visited, steps; "
+        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms")
+    del r
+    return {"launches": launches, "knns_ms": best * 1e3,
+            "unreordered_knns_ms": base_ms, "recall": rec,
+            "tie_bits": tie_bits, "reorder_s": reorder_s, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms}
+
+
+def phase_cli_card(path, qs, gt_i, want, inline_rows, dev, smi):
+    """Phase 14: the CLI on the card, on phase 12's index saved to
+    ``path``: ``inspect`` as a subprocess (degree percentiles of every
+    layer, the host-BFS connectivity line); ``load_index`` on the card and
+    the CLI's ``query_points`` at k=10, ef=96, ids and dists equal to
+    phase 12's knns (``want``), then its sort and pad and the recall gate;
+    then ``-S`` (the native host engine, one thread) on 1000 queries.
+    The card machine has no h5py, so the HDF5 commands (query-index,
+    evaluate) run in the CPU tests only."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.cli import finish_result, query_points
+    from hnsw_itu_tpu_torch.utils import load_index, recall_at_k
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "hnsw_itu_tpu_torch.cli",
+                          "inspect", path], cwd=HERE, capture_output=True,
+                         text=True, timeout=900)
+    inspect_s = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    shown = [ln for ln in lines if ln.endswith("connections")
+             or ln.startswith(("p0 ", "p50 ", "p100 ", "query on whole"))]
+    for ln in shown:
+        log(f"[14] inspect: {ln}")
+    if out.returncode != 0 or not any(ln.startswith("base has")
+                                      for ln in lines) \
+            or not any("host BFS from the entry point" in ln
+                       for ln in lines) or "layer0 has" not in out.stdout:
+        raise AssertionError(f"inspect failed (rc {out.returncode}): "
+                             f"{out.stderr[-2000:]}")
+    log(f"[14] python -m hnsw_itu_tpu_torch.cli inspect: rc 0 in "
+        f"{inspect_s:.1f} s")
+    t0 = time.perf_counter()
+    idx, attrs = load_index(path, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dists, ids = query_points(qs, idx, attrs, K, CLI_EF)
+    query_s = time.perf_counter() - t0
+    same = np.array_equal(ids, want[0]) and np.array_equal(dists, want[1])
+    log(f"[14] load_index on the card {load_s:.1f} s; query_points k={K} "
+        f"ef={CLI_EF} (route {idx.last_route}, inline rows "
+        f"{idx.inline_rows}): {query_s:.2f} s for {len(qs)} queries; ids "
+        f"and dists {'equal' if same else 'DIFFERENT'} to phase 12's knns")
+    if idx.inline_rows != inline_rows or not same:
+        raise AssertionError("the CLI's query on the loaded index != phase 12")
+    ids_s, dists_s = finish_result(ids, dists, K, sort=True)
+    rec = recall_at_k(ids_s, gt_i, K)
+    if rec < RECALL_GATE or not (np.diff(dists_s, axis=1) >= 0).all():
+        raise AssertionError(f"CLI result recall@10 {rec:.4f}")
+    n1 = min(1000, len(qs))
+    t0 = time.perf_counter()
+    d1, i1 = query_points(qs[:n1], idx, attrs, K, CLI_EF,
+                          single_threaded=True)
+    host_s = time.perf_counter() - t0
+    rec_s = recall_at_k(i1, gt_i[:n1], K)
+    log(f"[14] sorted, padded result: recall@10 {rec:.4f}; -S (native host "
+        f"engine, one thread) on {n1} queries: {host_s:.2f} s = "
+        f"{host_s / n1 * 1e6:.1f} us per query, recall@10 {rec_s:.4f} "
+        f"(on {smi})")
+    if rec_s < RECALL_GATE or d1.shape != (n1, K):
+        raise AssertionError(f"-S recall@10 {rec_s:.4f}")
+    return {"inspect_s": inspect_s, "load_s": load_s, "query_s": query_s,
+            "recall": rec, "single_threaded_s": host_s,
+            "single_threaded_us_per_query": host_s / n1 * 1e6,
+            "single_threaded_recall": rec_s}
+
+
+def make_l2_dataset(seed, n, nq, dim=L2_DIM):
+    """Unit-norm float32 vectors clustered as utils/synth.py clusters the
+    sketches: 64 roots -> 4096 mids -> n/128 leaves, each level a smaller
+    Gaussian offset of its parent; points and queries are leaves plus
+    noise. Returns (points [n, dim], queries [nq, dim])."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(rows, scale):
+        return (rng.standard_normal((rows, dim), dtype=np.float32)
+                * np.float32(scale))
+
+    roots = normal(64, 1.0)
+    mids = roots[rng.integers(0, 64, 4096)] + normal(4096, 0.5)
+    leaves = mids[rng.integers(0, 4096, max(1, n // 128))]
+    leaves += normal(leaves.shape[0], 0.25)
+
+    def draw(rows):
+        x = leaves[rng.integers(0, leaves.shape[0], rows)] + normal(rows,
+                                                                    0.15)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    return draw(n), draw(nq)
+
+
+def phase_l2(nq, dev, smi):
+    """Phase 16: the other metrics on the card. ``l2``: L2_N float32
+    points of L2_DIM dimensions (make_l2_dataset), HNSWBuilder at the
+    bench's options on the card (no native warmup: the engine has no
+    float metric; every search on the general beam search), the oracle
+    Bruteforce("l2") on the card, knns at the CLI's k=10, ef=96 through
+    the greedy descent on greedy_search: recall@10 >= 0.93, the device's
+    busy share on one batch, and the same call on CPU copies for
+    PARITY_Q queries (dists within rtol 1e-5, ids equal where the row's
+    distances are not tied). ``l2int``: the point3d example on the card,
+    its golden distances."""
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.examples import point3d
+    from hnsw_itu_tpu_torch.models import Bruteforce, IndexOptions
+    from hnsw_itu_tpu_torch.models import _build
+    from hnsw_itu_tpu_torch.models.hnsw import HNSW, HNSWBuilder
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    t0 = time.perf_counter()
+    pts, qs = make_l2_dataset(0, L2_N, nq)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bf = Bruteforce("l2", device=dev)
+    bf.extend(pts)
+    gt_i = bf.build().knns(qs, K).ids.cpu().numpy()
+    oracle_s = time.perf_counter() - t0
+    log(f"[16] l2 data {pts.shape} float32 on the host {data_s:.1f} s; "
+        f"oracle Bruteforce('l2') on the card {oracle_s:.2f} s")
+    opts = IndexOptions(size=L2_N, **BUILD_OPTS)
+    b = HNSWBuilder(opts, "l2", device=dev)
+    b.timings = {}
+    for f in (dma_beam_search, hamming_block):
+        f.kernel_launches = f.plain_calls = 0
+    t0 = time.perf_counter()
+    b.extend_batched(pts)
+    index = b.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spans = _build.span_ms(b.timings)
+    rec = {"data_s": data_s, "oracle_s": oracle_s, "build_s": build_s,
+           "spans_ms": spans, "level_ns": index.level_ns,
+           "edge_drops": b.total_edge_drops(),
+           "dma_launches": dma_beam_search.kernel_launches,
+           "ham_launches": hamming_block.kernel_launches}
+    log(f"[16] l2 build of {L2_N} x {L2_DIM} on the card, {opts}: "
+        f"{build_s:.1f} s (no host warmup), levels {index.level_ns}, edge "
+        f"drops {rec['edge_drops']}; CUDA events: "
+        + ", ".join(f"{k} {v:.0f} ms" for k, v in spans.items())
+        + f"; #6 launches {rec['dma_launches']}, #7 launches "
+        f"{rec['ham_launches']}")
+    if rec["dma_launches"] or rec["ham_launches"] or index.n != L2_N:
+        raise AssertionError(f"l2 build ran a Hamming kernel: {rec}")
+    del b
+    index.enable_inline()
+    q = torch.from_numpy(qs).to(dev)
+    best, res = best_of_3(lambda: index.knns(q, K, CLI_EF))
+    ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    r10 = recall_at_k(ids, gt_i, K)
+    Bq = index.query_batch
+    one = q[:Bq]
+    t0 = time.perf_counter()
+    index.knns(one, K, CLI_EF)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, _ = device_breakdown(lambda: index.knns(one, K, CLI_EF))
+    rec.update(knns_ms=best * 1e3, recall=r10, route=index.last_route,
+               inline_rows=index.inline_rows,
+               visited_q=float(index.last_stats["visited_q"].mean()),
+               steps_q=float(index.last_stats["steps_q"].mean()),
+               batch_host_ms=host_ms, batch_device_ms=dev_ms)
+    log(f"[16] knns k={K} ef={CLI_EF} (greedy descent on greedy_search, "
+        f"route {index.last_route}, inline rows {index.inline_rows}): best "
+        f"of 3 {best * 1e3:.1f} ms for {nq} queries = {nq / best:,.0f} QPS, "
+        f"recall@10 {r10:.4f}, visited/q {rec['visited_q']:.1f}, steps/q "
+        f"{rec['steps_q']:.2f}; one batch of {len(one)}: {host_ms:.1f} ms "
+        f"host clock, {dev_ms:.1f} ms device time: busy "
+        f"{dev_ms / host_ms:.0%} (on {smi})")
+    if index.last_route != "general" or r10 < RECALL_GATE or \
+            not np.isfinite(dists).all():
+        raise AssertionError(f"l2 knns: route {index.last_route}, recall@10 "
+                             f"{r10:.4f}")
+    cpu = HNSW(index.points, index.n, index.base, index.levels,
+               index.level_ns, index.ep, index.metric, index.opts,
+               device="cpu")
+    cpu.inline_rows = index.inline_rows
+    t0 = time.perf_counter()
+    rc = cpu.knns(qs[:PARITY_Q], K, CLI_EF)
+    cd, ci = rc.dists.numpy(), rc.ids.numpy()
+    gd = dists[:PARITY_Q]
+    close = np.allclose(cd, gd, rtol=1e-5, atol=1e-6)
+    sep = np.ones_like(gd, bool)  # no neighbor in the row within rtol
+    near = np.abs(np.diff(gd, axis=1)) <= 1e-5 * gd[:, 1:]
+    sep[:, 1:] &= ~near
+    sep[:, :-1] &= ~near
+    same_ids = np.array_equal(ci[sep], ids[:PARITY_Q][sep])
+    log(f"[16] the same knns on CPU copies, {PARITY_Q} queries "
+        f"({time.perf_counter() - t0:.1f} s): dists within rtol 1e-5 "
+        f"{close}, ids equal at the {int(sep.sum())} untied of "
+        f"{sep.size} places {same_ids}")
+    if not (close and same_ids):
+        raise AssertionError("l2 knns on CUDA != on CPU")
+    t0 = time.perf_counter()
+    golden = point3d.main(device=dev).tolist()
+    rec["point3d_s"] = time.perf_counter() - t0
+    log(f"[16] l2int: point3d example on the card: {golden} "
+        f"({rec['point3d_s']:.1f} s)")
+    if golden != point3d.EXPECTED:
+        raise AssertionError(f"point3d {golden} != {point3d.EXPECTED}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -1609,43 +2051,60 @@ def main(argv=None) -> int:
     from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
     from hnsw_itu_tpu_torch.ops.mini_search import mini_beam_search
+    from hnsw_itu_tpu_torch.utils import ResultAttrs, save_index
 
     dev = require_cuda(0)
     t_start = time.perf_counter()
+    seconds, t_last = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - t_last[0]
+        t_last[0] = now
+        log(f"[{name}] phase seconds {seconds[name]:.1f}")
+
     smi = phase_card()
+    lap("1")
     err_small = phase_small_graphs(dev)
     err_small_mini = phase_small_mini(dev)
     err_small_dma, err_small_ham = phase_small_build_kernels(dev)
     err_edge_fused, err_edge_dma, err_edge_mini = phase_small_edges(dev)
+    lap("2")
 
     # the fused path: build, table, queries; only its launches count
     fused_beam_search.kernel_launches = 0
     fused_beam_search.plain_calls = 0
     pts, qs, index = phase_build(args.n, args.nq, dev)
+    lap("3")
     gt_i = phase_oracle(pts, qs, dev)
+    lap("4")
     knns_s = phase_query(index, qs, gt_i, dev)
+    lap("5")
     launches = fused_beam_search.kernel_launches
     plain = fused_beam_search.plain_calls
     if launches <= 0 or plain != 0:
         raise AssertionError(
             f"fused path launches {launches}, plain calls {plain}")
     fused = phase_slice_shapes(index, qs, dev, smi, knns_s)
+    lap("6")
     # phase 13 on the 100k index: the greedy descent on #6, then #1
     descent_100k = phase_descent(index, qs, gt_i, dev, smi)
+    lap("13, 100k")
     del pts, qs, index, gt_i
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[6] fused-path index freed: "
         f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB still allocated")
 
-    # the mini path: build, table, queries; only its launches count
+    # the mini path: a device build of at least 2.2M rows, the table, the
+    # queries; only the queries' launches count
+    pts, qs, index, mini_build = phase_device_build(
+        args.mini_n, args.nq, dev, cap=max(args.mini_n, MINI_CAP), tag="7")
+    gt_i = phase_oracle(pts, qs, dev, tag="7")
+    del pts
     mini_beam_search.kernel_launches = 0
     mini_beam_search.plain_calls = 0
     fused_before = fused_beam_search.kernel_launches
-    pts, qs, index = phase_build(args.mini_n, args.nq, dev,
-                                 cap=max(args.mini_n, MINI_CAP), tag="7")
-    gt_i = phase_oracle(pts, qs, dev, tag="7")
-    del pts
     mini_q = phase_mini_query(index, qs, gt_i, dev)
     mini_launches = mini_beam_search.kernel_launches
     mini_plain = mini_beam_search.plain_calls
@@ -1655,8 +2114,14 @@ def main(argv=None) -> int:
     if mini_launches <= 0 or mini_plain != 0:
         raise AssertionError(
             f"mini path launches {mini_launches}, plain calls {mini_plain}")
+    lap("7")
     err_mini, mini, mini_sweep = phase_mini_slice_shapes(
         index, qs, dev, smi, mini_q[EF]["knns_ms"])
+    lap("8")
+    # phase 15 on the mini index: a reordered copy on its own mini table
+    reorder_mini = phase_reorder_mini(index, qs, gt_i, dev, smi,
+                                      mini_q[EF]["knns_ms"])
+    lap("15, mini")
     del qs, index, gt_i
     gc.collect()
     torch.cuda.empty_cache()
@@ -1664,11 +2129,18 @@ def main(argv=None) -> int:
     # the device build: its kernels' launch counts are zeroed inside, just
     # before extend_batched, and read right after build()
     pts, qs, index, build = phase_device_build(args.build_n, args.nq, dev)
+    lap("9")
     bk = phase_build_kernels(index, qs, dev, smi)
+    lap("10")
     served = phase_build_query(index, pts, qs, dev, smi)
-    gt_i = served.pop("gt_i")
+    gt_i, gt_d = served.pop("gt_i"), served.pop("gt_d")
+    lap("11")
     # phase 13 on the 1M device-built index
     descent_1m = phase_descent(index, qs, gt_i, dev, smi)
+    lap("13, 1M")
+    # phase 15 on the same index: a reordered copy on its own fused table
+    reorder_fused = phase_reorder_fused(index, qs, gt_i, gt_d, dev, smi)
+    lap("15, fused")
     del index
     gc.collect()
     torch.cuda.empty_cache()
@@ -1679,12 +2151,46 @@ def main(argv=None) -> int:
 
         pts, qs = make_dataset(0, args.cli_n, args.nq)
         gt_i = phase_oracle(pts, qs, dev, tag="12")
-    cli = phase_cli_default(pts, qs, gt_i, dev, smi)
-    del pts, qs, gt_i
+    cli, index, res12 = phase_cli_default(pts, qs, gt_i, dev, smi)
+    lap("12")
+    # phase 14: the CLI on the card, on phase 12's index saved to .npz
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cli_default.npz")
+        t0 = time.perf_counter()
+        save_index(path, index, ResultAttrs(
+            data="hamming", size=index.n, algo="Hnsw",
+            buildtime=cli["host_s"] + cli["device_s"] + cli["finish_s"],
+            params="index=(efc={ef_construction},m={connections},"
+                   "M={max_connections})".format(**CLI_OPTS)))
+        log(f"[14] save_index of phase 12's index: "
+            f"{os.path.getsize(path) / 1e9:.3f} GB in "
+            f"{time.perf_counter() - t0:.1f} s")
+        inline_rows = index.inline_rows
+        del index
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_card = phase_cli_card(path, qs, gt_i, res12, inline_rows, dev,
+                                  smi)
+    lap("14")
+    del pts, qs, gt_i, res12
     gc.collect()
     torch.cuda.empty_cache()
     nsw = phase_nsw(args.nq, dev)
-    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    lap("13, NSW")
+    gc.collect()
+    torch.cuda.empty_cache()
+    l2 = phase_l2(args.nq, dev, smi)
+    lap("16")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phase "
+        "seconds " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    log("[7] record " + json.dumps({"build": {k: mini_build[k] for k in (
+        "host_s", "device_s", "finish_s", "level_ns", "edge_drops",
+        "dma_launches", "ham_launches")}, "knns": {
+        str(k): v for k, v in mini_q.items()}}))
+    log("[14] record " + json.dumps(cli_card))
+    log("[15] record " + json.dumps({"fused": reorder_fused,
+                                     "mini": reorder_mini}))
+    log("[16] record " + json.dumps(l2))
     log("[12] record " + json.dumps({k: cli[k] for k in cli if k not in (
         "ham_plain", "dma_plain")}))
     log("[13] record " + json.dumps({"nsw": nsw, "descent": [
@@ -1718,6 +2224,11 @@ def main(argv=None) -> int:
             for d in (descent_100k, descent_1m)},
         "nsw": {"recall": nsw["fused"]["recall"],
                 "knns_ms": nsw["fused"]["knns_ms"]},
+        # phase 15: a reordered copy of the 1M device-built index
+        "reordered": {k: reorder_fused[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "knns_ms", "unreordered_knns_ms", "recall", "tie_tolerant",
+            "unreordered_tie_tolerant")},
     }, {
         "name": "mini_beam_search",
         "route": "cuda",
@@ -1733,8 +2244,11 @@ def main(argv=None) -> int:
         "library_ms": None,
         "ef32": mini[EF],
         "ef96": mini[MINI_EFS[1]],
+        "ef32_tie_bits_ms": mini["tie_bits_ms"],  # unreordered, bitrev
         "sweep": mini_sweep,
         "knns": {str(ef): v for ef, v in mini_q.items()},
+        # phase 15: the reordered 2.2M copy at bit-reversed tie order
+        "reordered": reorder_mini,
     }, {
         "name": "dma_beam_search",
         "route": "cuda",
@@ -1766,6 +2280,8 @@ def main(argv=None) -> int:
             for d in (descent_100k, descent_1m)},
         "cli_build_launches": cli["dma_launches"],  # 0: rows 256 wide
         "nsw_build_launches": nsw["dma_launches"],
+        "mini_build_launches": mini_build["dma_launches"],  # phase 7
+        "l2_build_launches": l2["dma_launches"],  # 0: not Hamming
     }, {
         "name": "hamming_block",
         "route": "cuda",
@@ -1786,6 +2302,8 @@ def main(argv=None) -> int:
         # each against its plain version at the build's own shape
         "cli_build": {"launches": cli["ham_launches"], **cli["ham"]},
         "nsw_build_launches": nsw["ham_launches"],
+        "mini_build_launches": mini_build["ham_launches"],  # phase 7
+        "l2_build_launches": l2["ham_launches"],  # 0: not Hamming
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

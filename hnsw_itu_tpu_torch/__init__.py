@@ -15,17 +15,20 @@ Rules the port follows:
 * no kernel is built at import: ``ops/_kernels.py`` compiles
   ``csrc/*.cu`` with ``nvcc`` at first use.
 
-Ported so far: the HNSW and NSW query paths (the sampled entry or the
-greedy descent, then the fused or the mini-table beam-search kernel with
-its exact rerank, or the general beam search where no table serves), the
-brute-force oracle, the HNSW and NSW builds (the native host warmup, then
+Ported: the Hamming, integer-L2 and float-L2 metrics and registered
+ones; the HNSW and NSW query paths (the sampled entry or the greedy
+descent, then the fused or the mini-table beam-search kernel with its
+exact rerank, or the general beam search where no table serves); the
+brute-force oracle; the HNSW and NSW builds (the native host warmup, then
 the batched device build on the gather beam-search kernel, or the general
-beam search past its limits, and the dense Hamming kernel), and ``.npz``
-persistence of all three index kinds.
+beam search past its limits, and the dense Hamming kernel); the BFS
+reorder; ``.npz`` persistence of all three index kinds; and the
+six-command CLI (``cli.py``). Sharding is not ported yet.
 """
 
 from .device import require_cuda
+from .ops.metrics import Metric, get_metric, register_metric
 
 __version__ = "0.1.0"
 
-__all__ = ["require_cuda"]
+__all__ = ["Metric", "get_metric", "register_metric", "require_cuda"]

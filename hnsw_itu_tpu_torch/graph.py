@@ -96,16 +96,19 @@ def append_reverse_edges(g: GraphArrays, targets: torch.Tensor,
 def prune_rows(g: GraphArrays, node_ids: torch.Tensor,
                node_pts: torch.Tensor, nbr_pts: torch.Tensor, m_max: int,
                extra_ids: torch.Tensor | None = None,
-               extra_pts: torch.Tensor | None = None) -> GraphArrays:
+               extra_pts: torch.Tensor | None = None,
+               metric=HAMMING) -> GraphArrays:
     """Re-run the diversity heuristic over each listed node's neighborhood
-    and rebuild its row (the degree-cap prune of insert_neighbors), on
-    Hamming distances (the JAX function's ``metric``; the port has only
-    Hamming).
+    and rebuild its row (the degree-cap prune of insert_neighbors) on
+    ``metric``. The candidate block is ``metric.pairwise_block`` where the
+    JAX function calls ``metric.pairwise``: the same integers for every
+    integer metric; for ``l2`` the norm expansion where JAX takes the
+    direct difference, float32 values that may differ in the last bits.
 
     Args:
       node_ids: int32[P] nodes to prune (< 0 entries are skipped).
-      node_pts: int32[P, words] the nodes' own points.
-      nbr_pts:  int32[P, W, words] the points of each node's current row.
+      node_pts: [P, D] the nodes' own points.
+      nbr_pts:  [P, W, D] the points of each node's current row.
       m_max: neighbors kept per row (<= W).
       extra_ids/extra_pts: optional [P, X] spilled candidates (-1 padded)
         and their points, joining each row's candidate set.
@@ -118,9 +121,9 @@ def prune_rows(g: GraphArrays, node_ids: torch.Tensor,
         rows = torch.cat([rows, extra_ids], dim=1)
         valid = torch.cat([valid, (extra_ids >= 0) & live], dim=1)
         nbr_pts = torch.cat([nbr_pts, extra_pts], dim=1)
-    d = HAMMING.one_to_many(node_pts, nbr_pts)
+    d = metric.one_to_many(node_pts, nbr_pts)
     sel_rows, _, n_sel = select_neighbors_points(nbr_pts, d, rows, valid,
-                                                 m_max)
+                                                 m_max, metric)
     if W > m_max:
         sel_rows = torch.cat([sel_rows, torch.full(
             (sel_rows.shape[0], W - m_max), -1, dtype=torch.int32,

@@ -11,15 +11,20 @@ deviations from the reference's sequential inserts carry over unchanged
 How the port differs from the JAX module, keeping its results:
 
 * The search is exact, over ``adj`` and ``points``, on one of two routes
-  chosen by shape before any launch (``search_route``): kernel #6
-  (``ops/dma_search.py``, ``csrc/dma_beam_search.cu``) where it serves
-  (rows up to ``MAX_WIDTH`` wide, beams up to ``MAX_EF``, sketches up to
-  ``MAX_WORDS`` words, ``expand == 1``), else the general beam search
+  chosen by metric and shape before any launch (``search_route``): kernel
+  #6 (``ops/dma_search.py``, ``csrc/dma_beam_search.cu``) where it serves
+  (Hamming, rows up to ``MAX_WIDTH`` wide, beams up to ``MAX_EF``,
+  sketches up to ``MAX_WORDS`` words, ``expand == 1``), else the general
+  beam search
   (``ops/search.py`` ``batched_beam_search``, ``dedup="beam"``, the JAX
   ``search_select`` default), which takes any width, ``ef`` and
   ``expand``. Both compute the JAX ``search_select`` beam. The JAX
   package's inline build rows (``adj_pts``, ``inline_words``) are a TPU
   memory layout and are not kept.
+* Every function takes the metric object (``metric``, Hamming by default)
+  where the JAX one takes ``metric_name``. Hamming's select and prune
+  blocks run the dense Hamming kernel (``Metric.pairwise_block``); other
+  metrics run ``pairwise_mxu``.
 * A chunk's rows are searched in one launch. The JAX ``chunk_step`` maps
   over windows of S rows, but every window searches the same pre-chunk
   graph (the mutation runs after the map), so S was never semantic.
@@ -49,7 +54,7 @@ from ..graph import (GraphArrays, append_reverse_edges, make_graph,
                      prune_rows, set_rows)
 from ..ops.dma_search import MAX_EF, MAX_WIDTH, MAX_WORDS, dma_beam_search
 from ..ops.entry import sampled_entry
-from ..ops.metrics import HAMMING, popcount_sum
+from ..ops.metrics import HAMMING, Hamming, as_points, popcount_sum
 from ..ops.mini_search import IINF
 from ..ops.search import batched_beam_search
 from ..ops.select import select_neighbors_points
@@ -89,23 +94,27 @@ def _rows(node_map, ids: torch.Tensor) -> torch.Tensor:
     return ids if node_map is None else node_map[ids].long()
 
 
-def search_route(adj, points, ef: int, expand: int = 1) -> str:
-    """"kernel" where kernel #6 serves a search of this shape, else
-    "general" (the general beam search)."""
-    if (adj.shape[1] <= MAX_WIDTH and ef <= MAX_EF
-            and points.shape[1] <= MAX_WORDS and expand == 1):
+def search_route(adj, points, ef: int, expand: int = 1,
+                 metric=HAMMING) -> str:
+    """"kernel" where kernel #6 serves a search of this metric and shape
+    (Hamming only), else "general" (the general beam search)."""
+    if (isinstance(metric, Hamming) and adj.shape[1] <= MAX_WIDTH
+            and ef <= MAX_EF and points.shape[1] <= MAX_WORDS
+            and expand == 1):
         return "kernel"
     return "general"
 
 
 def build_search(points, node_map, adj, qs, eps, *, ef: int,
-                 expand: int = 1, max_steps: int = MAX_STEPS):
+                 expand: int = 1, max_steps: int = MAX_STEPS,
+                 metric=HAMMING):
     """The build's beam search (the JAX ``search_select`` beam, ``dedup=
     "beam"``) of each row of ``qs`` from its entry ``eps`` (graph-local)
-    on the route ``search_route`` picks: (dists int32[S, ef], ids int32[S,
-    ef] graph-local); empty slots hold ids >= ``IINF``."""
+    on the route ``search_route`` picks: (dists [S, ef] of
+    ``metric.dist_dtype``, ids int32[S, ef] graph-local); empty slots
+    hold ids >= ``IINF``."""
     eps = eps.to(torch.int32)
-    if search_route(adj, points, ef, expand) == "kernel":
+    if search_route(adj, points, ef, expand, metric) == "kernel":
         d0 = popcount_sum(points[_rows(node_map, eps)] ^ qs)
         keys, _, _ = dma_beam_search(adj, points, node_map, qs, d0, eps,
                                      ef=ef, max_steps=max_steps)
@@ -113,30 +122,31 @@ def build_search(points, node_map, adj, qs, eps, *, ef: int,
             torch.int32)
     res = batched_beam_search(
         lambda ids: points[_rows(node_map, ids)], adj, qs, eps, ef=ef,
-        metric=HAMMING, capacity=adj.shape[0], expand=expand,
+        metric=metric, capacity=adj.shape[0], expand=expand,
         max_steps=max_steps, dedup="beam")
     return res.dists, res.ids
 
 
 def search_select(points, node_map, adj, qs, eps, *, efc: int, m: int,
                   expand: int = 1, max_steps: int = MAX_STEPS,
-                  timings=None):
+                  timings=None, metric=HAMMING):
     """Beam-search the graph at ``ef = efc`` for each row of ``qs`` from
     its entry ``eps`` (graph-local), then diversity-select up to ``m``
     neighbors from the beam: ``search_select_neighbors``, batched. Every
     row is real (the JAX ``q_valid`` padding mask has no counterpart).
 
-    Returns (sel_ids int32[S, m] graph-local, -1 padded; sel_d int32[S,
-    m])."""
+    Returns (sel_ids int32[S, m] graph-local, -1 padded; sel_d [S, m])."""
     dev = qs.device
     cap = adj.shape[0]
     with _span(timings, "search", dev):
         bd, bi = build_search(points, node_map, adj, qs, eps, ef=efc,
-                              expand=expand, max_steps=max_steps)
+                              expand=expand, max_steps=max_steps,
+                              metric=metric)
     with _span(timings, "select", dev):
-        valid = bi < IINF
+        valid = (bi < IINF) & (bd < metric.inf)
         cpts = points[_rows(node_map, bi.clamp(0, cap - 1))]
-        sel_ids, sel_d, _ = select_neighbors_points(cpts, bd, bi, valid, m)
+        sel_ids, sel_d, _ = select_neighbors_points(cpts, bd, bi, valid, m,
+                                                    metric)
     return sel_ids, sel_d
 
 
@@ -159,7 +169,8 @@ def _prune_order(over: torch.Tensor, budget: int) -> torch.Tensor:
 
 
 def apply_inserts(points, node_map, graph: GraphArrays, new_ids, sel_rows,
-                  spill=None, *, prune_budget: int = 256, timings=None):
+                  spill=None, *, prune_budget: int = 256, timings=None,
+                  metric=HAMMING):
     """Vectorized ``insert_neighbors`` for a chunk: forward rows, reverse
     edges, spill, and a budgeted prune of overfull rows.
 
@@ -175,11 +186,11 @@ def apply_inserts(points, node_map, graph: GraphArrays, new_ids, sel_rows,
     dev = graph.adj.device
     with _span(timings, "apply", dev):
         return _apply_inserts(points, node_map, graph, new_ids, sel_rows,
-                              spill, prune_budget)
+                              spill, prune_budget, metric)
 
 
 def _apply_inserts(points, node_map, graph, new_ids, sel_rows, spill,
-                   prune_budget):
+                   prune_budget, metric):
     cap, W = graph.adj.shape
     dev = graph.adj.device
 
@@ -233,30 +244,32 @@ def _apply_inserts(points, node_map, graph, new_ids, sel_rows, spill,
     if spill is not None:
         extra_ids = spill[pl]  # [P, X]
         prune_rows(graph, prune_ids, node_pts, nbr_pts, W,
-                   extra_ids=extra_ids, extra_pts=pts_of(extra_ids))
+                   extra_ids=extra_ids, extra_pts=pts_of(extra_ids),
+                   metric=metric)
         spill[pl] = -1  # consumed: adopted or rejected on merit
     else:
-        prune_rows(graph, prune_ids, node_pts, nbr_pts, W)
+        prune_rows(graph, prune_ids, node_pts, nbr_pts, W, metric=metric)
     return graph, spill, n_dropped
 
 
-def entry_step(points, qs, n: int, *, sample_size: int, timings=None):
+def entry_step(points, qs, n: int, *, sample_size: int, timings=None,
+               metric=HAMMING):
     """The sampled entry (``ops/entry.py``) for construction searches."""
     with _span(timings, "entry", qs.device):
         return sampled_entry(points, qs, n, sample_size=sample_size,
-                             metric=HAMMING)
+                             metric=metric)
 
 
 def chunk_step(points, node_map, graph: GraphArrays, spill, chunk, new_ids,
                n0: int, eps=None, *, efc: int, m: int, expand: int = 1,
                max_steps: int = MAX_STEPS, prune_budget: int = 256,
                entry_sample: int = 0, use_entry: bool = False,
-               timings=None):
+               timings=None, metric=HAMMING):
     """One construction chunk over already-written points: entries, the
     search and select of every row, then the mutation.
 
     Args:
-      chunk: int32[c, words] the new points (every row real).
+      chunk: [c, D] the new points (every row real).
       new_ids: int32[c] their graph-local ids.
       n0: the sampled entry's population bound (rows [0, n0) are sampled).
       eps: int32[c] entries, or None (with ``use_entry``).
@@ -266,19 +279,20 @@ def chunk_step(points, node_map, graph: GraphArrays, spill, chunk, new_ids,
     Returns (graph, spill, n_dropped); both updated in place."""
     if use_entry:
         sampled = entry_step(points, chunk, n0, sample_size=entry_sample,
-                             timings=timings)
+                             timings=timings, metric=metric)
         eps = sampled if eps is None else torch.where(eps >= 0, eps, sampled)
     sel, _ = search_select(points, node_map, graph.adj, chunk, eps,
                            efc=efc, m=m, expand=expand, max_steps=max_steps,
-                           timings=timings)
+                           timings=timings, metric=metric)
     return apply_inserts(points, node_map, graph, new_ids, sel, spill,
-                         prune_budget=prune_budget, timings=timings)
+                         prune_budget=prune_budget, timings=timings,
+                         metric=metric)
 
 
 def level_chunk_step(points, node_ids, graph: GraphArrays, down, chunk,
                      new_loc, eps, *, efc: int, m: int, expand: int = 1,
                      max_steps: int = MAX_STEPS, prune_budget: int = 256,
-                     timings=None):
+                     timings=None, metric=HAMMING):
     """One upper-level insert group: search and select every row, drop
     self-links, apply the mutation with a spill buffer of its own, and
     chain the entries to the level below through ``down``.
@@ -288,20 +302,21 @@ def level_chunk_step(points, node_ids, graph: GraphArrays, down, chunk,
     cap_l = graph.adj.shape[0]
     sel, _ = search_select(points, node_ids, graph.adj, chunk, eps,
                            efc=efc, m=m, expand=expand, max_steps=max_steps,
-                           timings=timings)
+                           timings=timings, metric=metric)
     # never link a node to itself (a group that seeded a brand-new layer
     # searches from its own first slot)
     sel = torch.where(sel == new_loc[:, None], -1, sel)
     graph, _, dropped = apply_inserts(
         points, node_ids, graph, new_loc, sel,
         make_spill(cap_l, device=graph.adj.device),
-        prune_budget=prune_budget, timings=timings)
+        prune_budget=prune_budget, timings=timings, metric=metric)
     next_eps = down[sel[:, 0].long().clamp(0, cap_l - 1)]
     return graph, next_eps, dropped
 
 
 def level_descend_step(points, node_ids, adj, down, chunk, eps, *,
-                       max_steps: int = MAX_STEPS, timings=None):
+                       max_steps: int = MAX_STEPS, timings=None,
+                       metric=HAMMING):
     """Greedy ef=1 descent through one level for a whole chunk, then
     follow ``down``. Select-neighbors of a one-key beam keeps that key, so
     the beam's key is the selection. A one-slot beam expands one entry a
@@ -310,14 +325,14 @@ def level_descend_step(points, node_ids, adj, down, chunk, eps, *,
     cap_l = adj.shape[0]
     with _span(timings, "search", chunk.device):
         _, best = build_search(points, node_ids, adj, chunk, eps, ef=1,
-                               max_steps=max_steps)
+                               max_steps=max_steps, metric=metric)
     best = best[:, 0]
     best = torch.where(best < IINF, best, -1)  # the JAX select's -1
     return down[best.clamp(0, cap_l - 1)]
 
 
 def drain_spill(points, graph: GraphArrays, spill, opts, *,
-                max_passes: int = 4, timings=None) -> None:
+                max_passes: int = 4, timings=None, metric=HAMMING) -> None:
     """Prune-only passes on the base layer, in place, consuming leftover
     spill entries (the JAX builders' ``_drain_spill``)."""
     budget = min(opts.size, max(opts.prune_budget, opts.batch_size * 16))
@@ -326,7 +341,7 @@ def drain_spill(points, graph: GraphArrays, spill, opts, *,
         if not bool((spill[:-1] >= 0).any()):
             break
         apply_inserts(points, None, graph, none, none.reshape(0, 1), spill,
-                      prune_budget=budget, timings=timings)
+                      prune_budget=budget, timings=timings, metric=metric)
 
 
 def grow_base(cap: int, need: int, graph: GraphArrays, spill, points):
@@ -352,14 +367,11 @@ def grow_base(cap: int, need: int, graph: GraphArrays, spill, points):
     return new, graph, spill, points
 
 
-def as_u32(points) -> np.ndarray:
-    """Host sketches as C-contiguous uint32 (int32 bit patterns kept)."""
-    pts = np.ascontiguousarray(points)
-    if pts.dtype == np.int32:
-        pts = pts.view(np.uint32)
-    if pts.dtype != np.uint32:
-        raise TypeError(f"sketch arrays are uint32 or int32, got {pts.dtype}")
-    return pts
+def host_points(points) -> np.ndarray:
+    """Host points, C-contiguous, in the dtype they take on a device
+    (``ops/metrics.py`` ``as_points``: uint32 words as int32 with the same
+    bits, other integers int32, floats float32)."""
+    return as_points(points, "cpu").numpy()
 
 
 def write_points(points, chunk, n: int):

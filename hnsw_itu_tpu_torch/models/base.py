@@ -38,8 +38,8 @@ def search_one(index, query, k: int, ef: int) -> KnnResult:
 class IndexOptions:
     """The JAX package's ``IndexOptions``: same fields, same defaults, so a
     saved index's options load unchanged. ``HNSWBuilder`` and
-    ``NSWBuilder`` read them all; ``reorder=True`` raises (ROADMAP §1,
-    item 6)."""
+    ``NSWBuilder`` read them all; with ``reorder=True`` their ``build()``
+    relabels the index in BFS order and seals the builder."""
 
     ef_construction: int = 100
     connections: int = 16

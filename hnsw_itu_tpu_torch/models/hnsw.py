@@ -29,9 +29,14 @@ base-layer search on the first route that serves the call:
   JAX ``_hnsw_query_step``, for every other call (wide rows, ef > 128,
   ``query_expand`` > 1, no table).
 
-The descent runs kernel #6 at ef=1 on each level whose rows it can read,
-else the general ``greedy_search``; both give the JAX ``_descent_eps``
-entries.
+The descent runs kernel #6 at ef=1 on each level whose rows it can read
+(Hamming only), else the general ``greedy_search``; both give the JAX
+``_descent_eps`` entries. Indexes of other metrics (``l2int``, ``l2``, a
+registered one) get no table and serve on the general route.
+
+``reorder`` relabels the base layer in BFS order (``ops/reorder.py``);
+levels keep their local numbering. With ``IndexOptions.reorder`` the
+builder does it in ``build()`` and is then sealed.
 """
 
 from __future__ import annotations
@@ -45,11 +50,11 @@ import torch
 
 from .. import native
 from ..graph import GraphArrays, make_graph
-from ..ops.metrics import as_sketches, get_metric
+from ..ops.metrics import as_points, get_metric
 from ..ops.search import greedy_search
 from . import _build
 from .base import IndexOptions, rng_seed
-from .nsw import QueryIndex
+from .nsw import NSWBuilder, QueryIndex
 
 
 class Level(NamedTuple):
@@ -81,9 +86,10 @@ def descent_eps(points, levels, qs, ep: int, *, metric,
     for lv in reversed(levels):
         adj, node_ids = lv.graph.adj, lv.node_ids
         cap_l = adj.shape[0]
-        if _build.search_route(adj, points, 1) == "kernel":
+        if _build.search_route(adj, points, 1, metric=metric) == "kernel":
             best = _build.build_search(points, node_ids, adj, qs, eps, ef=1,
-                                       max_steps=max_steps)[1][:, 0]
+                                       max_steps=max_steps,
+                                       metric=metric)[1][:, 0]
         else:
             _, best = greedy_search(
                 lambda ids, ni=node_ids: points[ni[ids].long()], adj, qs,
@@ -131,6 +137,29 @@ class HNSW(QueryIndex):
             e = int(lv.down[e])
         return e
 
+    def reorder(self, order: str = "bfs") -> None:
+        """Relabel the base layer in BFS order from ``base_ep()``
+        (``ops/reorder.py``); results keep original ids through
+        ``id_map``. Levels keep their local numbering: only ``node_ids``
+        on every level and ``down`` on the bottom level point into the
+        base and are remapped (slots past a level's count hold -1 or 0,
+        clamped as in JAX). With no levels ``ep`` is a base id and moves
+        too. Call before ``enable_inline()``."""
+        start = self.base_ep() if self.ep is not None else 0
+        pi = self._reorder_perm(order, start)
+        if pi is None:
+            return
+        perm, inv = pi
+        cap = self.base.capacity
+        self.base = self._relabel_base(perm, inv)
+        self.levels = [
+            Level(inv[lv.node_ids.long().clamp(0, cap - 1)],
+                  inv[lv.down.long().clamp(0, cap - 1)] if li == 0
+                  else lv.down, lv.graph)
+            for li, lv in enumerate(self.levels)]
+        if not self.levels:
+            self.ep = int(inv[self.ep])
+
 
 class HNSWBuilder:
     """Builds an HNSW index as the JAX ``HNSWBuilder`` does: the native
@@ -148,15 +177,12 @@ class HNSWBuilder:
         self.opts = options or IndexOptions()
         if self.opts.size <= 0:
             raise ValueError("IndexOptions.size must be set (preallocation)")
-        if self.opts.reorder:
-            raise NotImplementedError(
-                "reorder=True: the BFS reorder is not ported yet "
-                "(ROADMAP §1, item 6)")
         self.metric = get_metric(metric) if isinstance(metric, str) else metric
         self.device = torch.device(device)
         self.n = 0
         self.ep = None  # local slot in the top level (base id if no levels)
-        self.points = None  # int32[size, words] on device, first extend
+        self.points = None  # [size, D] on device, first extend
+        self._sealed = False  # set by a reorder build
         self.base = make_graph(self.opts.size, self.opts.max_connections,
                                device=self.device)
         self.levels: list[Level] = []
@@ -210,22 +236,20 @@ class HNSWBuilder:
             self.opts = dataclasses.replace(self.opts, size=size)
 
     # -- builder API ----------------------------------------------------------
-    def _ensure_points(self, sample: np.ndarray) -> None:
-        if self.points is None:
-            self.points = torch.zeros((self.opts.size, sample.shape[1]),
-                                      dtype=torch.int32, device=self.device)
+    _check_unsealed = NSWBuilder._check_unsealed
+    _ensure_points = NSWBuilder._ensure_points
 
     def _write(self, chunk: np.ndarray) -> None:
-        _build.write_points(self.points, as_sketches(chunk, self.device),
+        _build.write_points(self.points, as_points(chunk, self.device),
                             self.n)
         self.n += chunk.shape[0]
 
     def add(self, point) -> None:
-        self.extend(_build.as_u32(point)[None])
+        self.extend(_build.host_points(point)[None])
 
     def extend(self, points) -> None:
         """Sequential inserts: chunks of one, per-point level draw."""
-        pts = _build.as_u32(points)
+        pts = _build.host_points(points)
         self._ensure_points(pts)
         for row in pts:
             self._insert_chunk(row[None])
@@ -240,7 +264,7 @@ class HNSWBuilder:
         steps (the JAX scanned dispatch, as a loop). ``progress`` is called
         with the running row count after the warmup and after every
         group."""
-        pts = _build.as_u32(points)
+        pts = _build.host_points(points)
         self._ensure_points(pts)
         off = self._host_warmup(pts)
         if off and progress:
@@ -296,10 +320,12 @@ class HNSWBuilder:
         same draws, buffers and call), then its arrays go to the device.
         Returns the number of points inserted (0: not run)."""
         warm = min(self.opts.host_warmup, pts.shape[0])
-        if self.n > 0 or warm < 2:
+        if (self.n > 0 or warm < 2
+                or self.metric.name not in native.METRIC_CODE
+                or not native.available()):
             return 0
         cap, W = self.opts.size, self.opts.max_connections
-        pts_np = np.zeros((cap, pts.shape[1]), np.uint32)
+        pts_np = np.zeros((cap, pts.shape[1]), pts.dtype)
         pts_np[:warm] = pts[:warm]
         adj_np = np.full((cap, W), -1, np.int32)
         deg_np = np.zeros((cap,), np.int32)
@@ -322,7 +348,7 @@ class HNSWBuilder:
             level_ns=level_ns, ep=0,
         )
         dev = self.device
-        self.points = as_sketches(pts_np, dev)
+        self.points = as_points(pts_np, dev)
         self.base = GraphArrays(torch.from_numpy(adj_np).to(dev),
                                 torch.from_numpy(deg_np).to(dev))
         off = 0
@@ -343,12 +369,15 @@ class HNSWBuilder:
         """The finished index on ``device``: leftover spill entries get up
         to four prune passes (those still left count as edge drops), and
         level arrays shrink from build capacity to a pow2 of their node
-        count (floor 8), as in the JAX ``build()``. Call
+        count (floor 8), as in the JAX ``build()``. With
+        ``IndexOptions.reorder`` the index is relabeled in BFS order, the
+        builder takes the relabeled arrays and is sealed. Call
         ``enable_inline()`` on the result before querying."""
+        self._check_unsealed()
         if self.points is None:
             raise ValueError("empty index: call extend_batched first")
         _build.drain_spill(self.points, self.base, self.spill, self.opts,
-                           timings=self.timings)
+                           timings=self.timings, metric=self.metric)
         self.edge_drops.append((self.spill[:-1] >= 0).sum(dtype=torch.int32))
         levels = []
         for lv, nl in zip(self.levels, self.level_ns):
@@ -356,8 +385,17 @@ class HNSWBuilder:
             levels.append(Level(lv.node_ids[:m], lv.down[:m],
                                 GraphArrays(lv.graph.adj[:m],
                                             lv.graph.deg[:m])))
-        return HNSW(self.points, self.n, self.base, levels, self.level_ns,
-                    self.ep, self.metric, self.opts, device=self.device)
+        h = HNSW(self.points, self.n, self.base, levels, self.level_ns,
+                 self.ep, self.metric, self.opts, device=self.device)
+        if self.opts.reorder:
+            h.reorder()
+            # the leftover spill ids are in the old numbering and already
+            # counted as drops; the trimmed levels leave no room to grow
+            self.points, self.base, self.levels = h.points, h.base, h.levels
+            self.ep = h.ep
+            self.spill.fill_(-1)
+            self._sealed = True
+        return h
 
     # -- the chunk insert -----------------------------------------------------
     def _insert_chunk(self, chunk: np.ndarray, level: int | None = None):
@@ -437,7 +475,7 @@ class HNSWBuilder:
             lv = self.levels[l]
             eps = _build.level_descend_step(
                 self.points, lv.node_ids, lv.graph.adj, lv.down, q, eps,
-                timings=self.timings)
+                timings=self.timings, metric=self.metric)
         # insert top-down; a brand-new layer holds only this group: enter
         # at its first slot and leave the old layers' entry chain alone
         for l in range(level - 1, -1, -1):
@@ -461,7 +499,7 @@ class HNSWBuilder:
             expand=self.opts.expand,
             prune_budget=min(lv.graph.capacity,
                              max(self.opts.prune_budget, cpad)),
-            timings=self.timings)
+            timings=self.timings, metric=self.metric)
         self.edge_drops.append(dropped)
         self.levels[l] = Level(lv.node_ids, lv.down, g)
         return next_eps
@@ -475,7 +513,7 @@ class HNSWBuilder:
             expand=self.opts.expand, prune_budget=min(self.opts.size,
                              max(self.opts.prune_budget, cpad)),
             entry_sample=self.opts.entry_sample, use_entry=eps is None,
-            timings=self.timings)
+            timings=self.timings, metric=self.metric)
         self.edge_drops.append(dropped)
 
     def _insert_base_grouped(self, base_ids: np.ndarray, eps, c: int):
@@ -499,5 +537,5 @@ class HNSWBuilder:
                 prune_budget=min(self.opts.size,
                                  max(self.opts.prune_budget, c)),
                 entry_sample=self.opts.entry_sample, use_entry=True,
-                timings=self.timings)
+                timings=self.timings, metric=self.metric)
             self.edge_drops.append(dropped)

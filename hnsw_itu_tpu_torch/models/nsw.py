@@ -9,17 +9,25 @@ table's limits, the mini table (``_mini_config_for``,
 (``ops/search.py``), where ``_inline_query_fits`` stands for the JAX
 package's inline base rows.
 
+Only Hamming indexes get a fused or mini table; every other metric
+(``l2int``, ``l2``, a registered one) serves on the general route.
+
 ``NSWBuilder`` builds as the JAX builder does on its gather route: the
-native host engine inserts the first ``host_warmup`` points, then the
-batched device chunks (``models/_build.py`` ``chunk_step`` with node map
-None) insert the rest, the scanned groups as a loop of chunk steps. The
-JAX inline build rows and its scanned dispatch are TPU layout and are not
-ported; neither is ``reorder`` (ROADMAP §1, item 6).
+native host engine inserts the first ``host_warmup`` points (Hamming and
+``l2int``, the metrics it has), then the batched device chunks
+(``models/_build.py`` ``chunk_step`` with node map None) insert the rest,
+the scanned groups as a loop of chunk steps. The JAX inline build rows and
+its scanned dispatch are TPU layout and are not ported.
+
+``reorder`` relabels an index in BFS order (``ops/reorder.py``); with
+``IndexOptions.reorder`` the builder does it in ``build()`` and is then
+sealed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -30,10 +38,12 @@ from ..ops.entry import sampled_entry, sampled_entry_topk
 from ..ops.fused_search import (MAX_EF, MAX_WIDTH, FusedTable,
                                 fused_beam_search, fused_width, key_clamp,
                                 materialize_fused)
-from ..ops.metrics import as_sketches, get_metric, popcount_sum
+from ..ops.metrics import as_points, get_metric, popcount_sum
 from ..ops.mini_search import (IINF, LANES, materialize_mini,
                                mini_beam_search, mini_subrows, rerank_exact,
                                rerank_onehop)
+from ..ops.reorder import (bfs_order, full_permutation, permute_base,
+                           window_shuffle)
 from ..ops.search import batched_beam_search
 from ..ops.topk import inverse_permutation
 from . import _build
@@ -245,6 +255,40 @@ class QueryIndex:
             raise ValueError(f"unknown query_tie {tie!r}")
         return max(1, (self._base().capacity - 1).bit_length())
 
+    def _reorder_perm(self, order: str, start: int):
+        """(perm, inv) int32 tensors on the device of the BFS relabel from
+        base id ``start`` (the JAX ``reorder``'s shared prologue), or None
+        when there is nothing to relabel. The window of
+        ``HNSW_TPU_REORDER_SHUFFLE`` (0: none) shuffles ranks as in the
+        JAX package, so both give the same permutation."""
+        if order != "bfs":
+            raise ValueError(f"unknown reorder {order!r}; known: bfs")
+        if self.ep is None or self.n <= 1:
+            return None
+        if self.fused is not None or self.mini is not None:
+            raise ValueError(
+                "reorder before enable_inline(): the fused/mini tables "
+                "embed node ids and are materialized from the reordered "
+                "arrays"
+            )
+        g = self._base()
+        o = bfs_order(g.adj[: self.n].cpu().numpy(), self.n, start)
+        o = window_shuffle(o, int(os.environ.get("HNSW_TPU_REORDER_SHUFFLE",
+                                                 0)))
+        perm, inv = full_permutation(o, g.capacity)
+        return (torch.from_numpy(perm).to(self.device),
+                torch.from_numpy(inv).to(self.device))
+
+    def _relabel_base(self, perm: torch.Tensor, inv: torch.Tensor):
+        """Permute points and the base graph; ``id_map`` composes (the
+        existing new -> original map, permuted). Returns the new base
+        graph for the subclass to hold."""
+        g = self._base()
+        self.points, adj, deg = permute_base(self.points, g.adj, g.deg,
+                                             perm, inv)
+        self.id_map = perm if self.id_map is None else self.id_map[perm.long()]
+        return GraphArrays(adj, deg)
+
     def enable_inline(self) -> None:
         """Materialize one base-layer query table, once: the fused table
         when its kernel can serve this index (``_fused_query_eligible``),
@@ -303,7 +347,7 @@ class QueryIndex:
         picks."""
         if self.ep is None:
             raise ValueError("empty index")
-        qs = as_sketches(queries, self.device)
+        qs = as_points(queries, self.device)
         nq = qs.shape[0]
         route = self.route(k, ef)
         steps = self._steps_cap(ef)
@@ -372,6 +416,18 @@ class NSW(QueryIndex):
         return torch.full((q.shape[0],), self.ep, dtype=torch.int32,
                           device=q.device)
 
+    def reorder(self, order: str = "bfs") -> None:
+        """Relabel the nodes in BFS order from the entry point
+        (``ops/reorder.py``); results keep original ids through
+        ``id_map``. Call before ``enable_inline()``."""
+        pi = self._reorder_perm(order, self.ep)
+        if pi is not None:
+            self._apply_perm(*pi)
+
+    def _apply_perm(self, perm: torch.Tensor, inv: torch.Tensor) -> None:
+        self.graph = self._relabel_base(perm, inv)
+        self.ep = int(inv[self.ep])
+
 
 class NSWBuilder:
     """Builds an NSW index as the JAX ``NSWBuilder`` does on its gather
@@ -385,15 +441,12 @@ class NSWBuilder:
         self.opts = options or IndexOptions()
         if self.opts.size <= 0:
             raise ValueError("IndexOptions.size must be set (preallocation)")
-        if self.opts.reorder:
-            raise NotImplementedError(
-                "reorder=True: the BFS reorder is not ported yet "
-                "(ROADMAP §1, item 6)")
         self.metric = get_metric(metric) if isinstance(metric, str) else metric
         self.device = torch.device(device)
         self.n = 0
         self.ep = None
-        self.points = None  # int32[size, words] on device, first extend
+        self.points = None  # [size, D] on device, first extend
+        self._sealed = False  # set by a reorder build
         self.graph = make_graph(self.opts.size, self.opts.max_connections,
                                 device=self.device)
         self.spill = _build.make_spill(self.opts.size, device=self.device)
@@ -412,17 +465,31 @@ class NSWBuilder:
             size, self.graph, self.spill, self.points = grown
             self.opts = dataclasses.replace(self.opts, size=size)
 
+    def _check_unsealed(self) -> None:
+        """A reorder build leaves these arrays in the new ids:
+        further extends or builds would relabel again and corrupt
+        ``id_map``."""
+        if self._sealed:
+            raise RuntimeError(
+                "builder is sealed after a reorder build: further "
+                "extend/build would compose relabels and corrupt the "
+                "id_map; create a new builder (or set reorder=False and "
+                "call index.reorder() yourself)"
+            )
+
     def _ensure_points(self, sample: np.ndarray) -> None:
+        self._check_unsealed()
         if self.points is None:
-            self.points = torch.zeros((self.opts.size, sample.shape[1]),
-                                      dtype=torch.int32, device=self.device)
+            self.points = torch.zeros(
+                (self.opts.size, sample.shape[1]),
+                dtype=torch.from_numpy(sample[:0]).dtype, device=self.device)
 
     def add(self, point) -> None:
-        self.extend(_build.as_u32(point)[None])
+        self.extend(_build.host_points(point)[None])
 
     def extend(self, points, sequential: bool = True) -> None:
         """Sequential inserts (chunks of one), or ``extend_batched``."""
-        pts = _build.as_u32(points)
+        pts = _build.host_points(points)
         self._ensure_points(pts)
         if not sequential:
             self.extend_batched(pts)
@@ -436,7 +503,7 @@ class NSWBuilder:
         G steady-state chunks runs as G chunk steps. ``progress`` is
         called with the running row count after the warmup and after
         every group."""
-        pts = _build.as_u32(points)
+        pts = _build.host_points(points)
         self._ensure_points(pts)
         off = self._host_warmup(pts)
         if off and progress:
@@ -466,11 +533,12 @@ class NSWBuilder:
         then its arrays go to the device. Returns the number of points
         inserted (0: not run)."""
         warm = min(self.opts.host_warmup, pts.shape[0])
-        if self.n > 0 or warm < 2 or self.metric.name not in \
-                native.METRIC_CODE:
+        if (self.n > 0 or warm < 2
+                or self.metric.name not in native.METRIC_CODE
+                or not native.available()):
             return 0
         cap, W = self.opts.size, self.opts.max_connections
-        pts_np = np.zeros((cap, pts.shape[1]), np.uint32)
+        pts_np = np.zeros((cap, pts.shape[1]), pts.dtype)
         pts_np[:warm] = pts[:warm]
         adj_np = np.full((cap, W), -1, np.int32)
         deg_np = np.zeros((cap,), np.int32)
@@ -478,7 +546,7 @@ class NSWBuilder:
                           m=self.opts.connections,
                           efc=self.opts.ef_construction, ep=0)
         dev = self.device
-        self.points = as_sketches(pts_np, dev)
+        self.points = as_points(pts_np, dev)
         self.graph = GraphArrays(torch.from_numpy(adj_np).to(dev),
                                  torch.from_numpy(deg_np).to(dev))
         self.ep = 0
@@ -487,15 +555,26 @@ class NSWBuilder:
 
     def build(self) -> NSW:
         """The finished index on ``device``: leftover spill entries get up
-        to four prune passes (those still left count as edge drops). Call
+        to four prune passes (those still left count as edge drops). With
+        ``IndexOptions.reorder`` the index is relabeled in BFS order, the
+        builder takes the relabeled arrays and is sealed. Call
         ``enable_inline()`` on the result before querying."""
+        self._check_unsealed()
         if self.points is None:
             raise ValueError("empty index: call extend_batched first")
         _build.drain_spill(self.points, self.graph, self.spill, self.opts,
-                           timings=self.timings)
+                           timings=self.timings, metric=self.metric)
         self.edge_drops.append((self.spill[:-1] >= 0).sum(dtype=torch.int32))
-        return NSW(self.points, self.n, self.graph, self.ep, self.metric,
-                   self.opts, device=self.device)
+        nsw = NSW(self.points, self.n, self.graph, self.ep, self.metric,
+                  self.opts, device=self.device)
+        if self.opts.reorder:
+            nsw.reorder()
+            # the leftover spill ids are in the old numbering and already
+            # counted as drops
+            self.points, self.graph, self.ep = nsw.points, nsw.graph, nsw.ep
+            self.spill.fill_(-1)
+            self._sealed = True
+        return nsw
 
     def _insert_chunk(self, chunk: np.ndarray) -> None:
         """Write and insert a contiguous chunk: the first point ever
@@ -505,15 +584,15 @@ class NSWBuilder:
         if self.n + c > self.opts.size:
             self._grow_capacity(self.n + c)
         if self.ep is None:
-            _build.write_points(self.points, as_sketches(chunk[:1],
-                                                         self.device), self.n)
+            _build.write_points(self.points, as_points(chunk[:1],
+                                                       self.device), self.n)
             self.ep = self.n
             self.n += 1
             chunk, c = chunk[1:], c - 1
             if c == 0:
                 return
         n0 = self.n
-        q = as_sketches(chunk, self.device)
+        q = as_points(chunk, self.device)
         _build.write_points(self.points, q, n0)
         # the JAX step's bucket padding shows only in the prune budget
         S = 1 if c == 1 else min(self.opts.batch_size,
@@ -529,6 +608,6 @@ class NSWBuilder:
             expand=self.opts.expand,
             prune_budget=min(self.opts.size, max(self.opts.prune_budget, cp)),
             entry_sample=self.opts.entry_sample, use_entry=use_entry,
-            timings=self.timings)
+            timings=self.timings, metric=self.metric)
         self.n += c
         self.edge_drops.append(dropped)

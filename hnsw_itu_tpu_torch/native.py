@@ -11,8 +11,11 @@ raises. Exposes:
 * ``host_build_hnsw`` — the same with the full hierarchy (the HNSW host
                         warmup, and the whole build with ``host_warmup >=
                         size``)
+* ``host_knns``       — multithreaded batch search, one entry per query
+                        (the CLI's ``-S`` query route)
 * ``host_bruteforce`` — exact scan oracle
 * ``hamming``         — scalar distance golden hook
+* ``available``       — whether the library loads here
 """
 
 from __future__ import annotations
@@ -96,12 +99,25 @@ def load():
             _I32, _P, _P, _P, _P, _P, _P, _P,
         ]
         lib.hnsw_host_build_hnsw.restype = _I64
+        lib.hnsw_host_knns_eps.argtypes = [
+            _P, _I32, _I32, _P, _P, _I64, _I32, _I64, _P, _I64, _I32, _I32,
+            _P, _I32, _I32, _P, _P,
+        ]
+        lib.hnsw_host_knns_eps.restype = _I64
         lib.hnsw_host_bruteforce.argtypes = [
             _P, _I32, _I32, _I64, _P, _I64, _I32, _I32, _P, _P,
         ]
         lib.hnsw_host_bruteforce.restype = _I64
         _LIB = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the native library builds and loads on this machine."""
+    try:
+        return load() is not None
+    except Exception:
+        return False
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -176,6 +192,37 @@ def host_build_hnsw(points: np.ndarray, metric: str, adj: np.ndarray,
     if r < 0:
         raise ValueError("hnsw_host_build_hnsw: bad arguments")
     return int(r), int(ep_io[0])
+
+
+def host_knns(points: np.ndarray, metric: str, adj: np.ndarray,
+              deg: np.ndarray, n: int, queries: np.ndarray, k: int, ef: int,
+              ep: int = 0, threads: int = 0, eps: np.ndarray | None = None):
+    """Batch k-NN on the host engine: (dists, ids) int32[nq, k].
+    ``eps`` (int32[nq]) gives each query its entry (the HNSW level
+    descent's hook); else ``ep`` seeds every query."""
+    lib = load()
+    points = np.ascontiguousarray(points)
+    queries = np.ascontiguousarray(queries, points.dtype)
+    adj = np.ascontiguousarray(adj, np.int32)
+    deg = np.ascontiguousarray(deg, np.int32)
+    nq = queries.shape[0]
+    out_ids = np.empty((nq, k), np.int32)
+    out_dists = np.empty((nq, k), np.int32)
+    eps_ptr = None
+    if eps is not None:
+        eps = np.ascontiguousarray(eps, np.int32)
+        if eps.shape != (nq,):
+            raise ValueError(f"host_knns: eps of shape {eps.shape} for {nq} "
+                             "queries")
+        eps_ptr = _ptr(eps)
+    r = lib.hnsw_host_knns_eps(
+        _ptr(points), points.shape[1], METRIC_CODE[metric], _ptr(adj),
+        _ptr(deg), adj.shape[0], adj.shape[1], n, _ptr(queries), nq, k, ef,
+        eps_ptr, ep, threads, _ptr(out_ids), _ptr(out_dists),
+    )
+    if r < 0:
+        raise ValueError("hnsw_host_knns: bad arguments")
+    return out_dists, out_ids
 
 
 def host_bruteforce(points: np.ndarray, metric: str, queries: np.ndarray,

@@ -8,12 +8,9 @@ the first minimum, as ``jnp.argmin`` does.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .metrics import Hamming
-
-_INT32_MAX = np.iinfo(np.int32).max  # the Hamming metric's +infinity
+from .metrics import Metric
 
 
 def strided_sample_ids(n: int, sample_size: int, *,
@@ -24,7 +21,7 @@ def strided_sample_ids(n: int, sample_size: int, *,
 
 
 def sampled_entry(points: torch.Tensor, qs: torch.Tensor, n: int, *,
-                  sample_size: int, metric: Hamming) -> torch.Tensor:
+                  sample_size: int, metric: Metric) -> torch.Tensor:
     """Per-query entry ids int32[B]: argmin over a strided sample."""
     ids = strided_sample_ids(n, sample_size, device=points.device)
     d = metric.pairwise_mxu(qs, points[ids.long()])  # [B, S]
@@ -32,10 +29,11 @@ def sampled_entry(points: torch.Tensor, qs: torch.Tensor, n: int, *,
 
 
 def sampled_entry_topk(points: torch.Tensor, qs: torch.Tensor, n: int, *,
-                       sample_size: int, beams: int, metric: Hamming):
+                       sample_size: int, beams: int, metric: Metric):
     """Per-query top-``beams`` entry ids over the strided sample, by
     iterative argmin (column 0 equals ``sampled_entry``). Returns
-    (ids int32[B, beams], dists int32[B, beams]), ascending by distance,
+    (ids int32[B, beams], dists [B, beams] of ``metric.dist_dtype``),
+    ascending by distance,
     ties to the lowest sample position; ids are distinct when n >=
     sample_size."""
     if beams > sample_size:
@@ -48,5 +46,5 @@ def sampled_entry_topk(points: torch.Tensor, qs: torch.Tensor, n: int, *,
         p0 = torch.argmin(d, dim=1)
         out_i.append(ids[p0])
         out_d.append(d.gather(1, p0[:, None])[:, 0])
-        d = torch.where(pos == p0[:, None], _INT32_MAX, d)
+        d = torch.where(pos == p0[:, None], metric.inf, d)
     return torch.stack(out_i, dim=1), torch.stack(out_d, dim=1)

@@ -21,6 +21,7 @@ from ..models.base import IndexOptions
 from ..models.bruteforce import Bruteforce
 from ..models.hnsw import HNSW, HNSWBuilder, Level
 from ..models.nsw import NSW
+from ..ops.metrics import Hamming
 
 FORMAT_VERSION = 1
 
@@ -45,10 +46,18 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _points_np(index) -> np.ndarray:
+    """The index's points as the JAX package stores them: Hamming
+    sketches as uint32 words, every other metric in its own dtype."""
+    a = index.points.cpu().numpy()
+    return a.view(np.uint32) if isinstance(index.metric, Hamming) else a
+
+
 def from_numpy(points, adj, deg, levels, level_ns, ep, n, opts, device, *,
                metric: str = "hamming") -> HNSW:
-    """An ``HNSW`` on ``device`` from host arrays: ``points`` uint32 (or
-    int32) [cap, words], ``adj`` int32[cap, W], ``deg`` int32[cap], and
+    """An ``HNSW`` on ``device`` from host arrays: ``points`` [cap, D]
+    (uint32 sketch words, or the metric's dtype), ``adj`` int32[cap, W],
+    ``deg`` int32[cap], and
     ``levels`` a list of (node_ids, down, adj, deg) int32 arrays."""
     lv = [Level(_t(a, device), _t(d, device),
                 GraphArrays(_t(la, device), _t(ld, device)))
@@ -102,7 +111,6 @@ def save_index(path, index, attrs: ResultAttrs | None = None) -> None:
         "opts": asdict(getattr(index, "opts", IndexOptions())),
     }
     host = lambda t: t.cpu().numpy()  # noqa: E731
-    pts_u32 = lambda t: host(t).view(np.uint32)  # noqa: E731
     if isinstance(index, Bruteforce):
         meta["kind"] = "bruteforce"
         meta["n"] = index.size()
@@ -110,12 +118,12 @@ def save_index(path, index, attrs: ResultAttrs | None = None) -> None:
                                            axis=0)[: index.size()]}
     elif isinstance(index, NSW):
         meta.update(kind="nsw", n=index.n, ep=index.ep)
-        arrays = {"points": pts_u32(index.points),
+        arrays = {"points": _points_np(index),
                   "adj": host(index.graph.adj), "deg": host(index.graph.deg)}
     elif isinstance(index, HNSW):
         meta.update(kind="hnsw", n=index.n, ep=index.ep,
                     level_ns=index.level_ns)
-        arrays = {"points": pts_u32(index.points),
+        arrays = {"points": _points_np(index),
                   "adj": host(index.base.adj), "deg": host(index.base.deg)}
         for l, lv in enumerate(index.levels):
             arrays[f"l{l}_node_ids"] = host(lv.node_ids)

@@ -174,22 +174,28 @@ def _run(idx, qs, k, ef, *, sample=0, expand=1):
 
 
 @pytest.mark.parametrize("case", ["descent", "ef129", "reorder", "expand"])
-def test_deferred_paths_raise(port_index, jax_loaded, data, case):
+def test_deferred_paths_raise(port_index, jax_loaded, jax_index, data,
+                              case):
     """Paths that once raised now serve, each equal to the JAX route it
     ports: the greedy descent (query_entry_sample=0) before the fused
     kernel; ef > 128 and query_expand=2 on the general route (the port's
     fused table leaves the general route on bitmask dedup, as a JAX index
-    without inline rows). The BFS reorder still raises."""
+    without inline rows); the BFS reorder, on fresh loads of the JAX
+    file, then the general route with bit-reversed ties."""
     jplain, jinline = jax_loaded
     idx = port_index
     idx.enable_inline()
     assert idx.fused is not None
     if case == "reorder":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            HNSWBuilder(IndexOptions(**{**OPTS, "reorder": True}),
-                        device="cpu")
-        return
-    if case == "descent":
+        HNSWBuilder(IndexOptions(**{**OPTS, "reorder": True}), device="cpu")
+        idx, _ = load_index(str(jax_index[1]), "cpu")
+        jre, _ = jax_load(str(jax_index[1]))
+        idx.reorder()
+        jre.reorder()
+        got = _run(idx, data[1], K, EF)
+        assert idx.last_route == "general" and idx._tie_bits() > 0
+        want = _run(jre, data[1], K, EF)
+    elif case == "descent":
         calls = dma_beam_search.plain_calls
         got = _run(idx, data[1], K, EF)
         # kernel #6's plain route ran the descent, one call per level

@@ -3,8 +3,8 @@ loads in a process where ``import jax`` fails, and none of them pulls in
 ``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel. The modules
 that port code of a JAX module (the mini-table search, the build's
 kernels, select-neighbors, the graph mutations, the build steps, the
-visited bitmask, the general beam search and the NSW index) are also
-checked alone."""
+visited bitmask, the general beam search, the NSW index, the metrics, the
+reorder, the CLI, its helpers and the examples) are also checked alone."""
 
 import os
 import subprocess
@@ -68,4 +68,16 @@ def test_mini_search_imports_alone_without_jax():
                                     "ops.bitset", "ops.search",
                                     "models.nsw"])
 def test_build_modules_import_alone_without_jax(module):
+    _imports_alone(module)
+
+
+@pytest.mark.parametrize("module", ["ops.metrics", "ops.reorder", "cli",
+                                    "utils.dataset", "utils.instrument",
+                                    "utils.logging", "utils.evalrecall",
+                                    "examples.point3d",
+                                    "examples.custom_metric"])
+def test_cli_modules_import_alone_without_jax(module):
+    """The metrics, the reorder, the CLI and its helpers, and the
+    examples: no jax, no hnsw_itu_tpu (and, through the probe above, no
+    h5py at import)."""
     _imports_alone(module)

@@ -110,7 +110,120 @@ def test_inverse_permutation():
 
 
 def test_unported_metrics_raise():
-    with pytest.raises(NotImplementedError):
-        get_metric("l2int")
-    with pytest.raises(ValueError):
+    """Every JAX metric is ported now; an unknown name raises as in JAX."""
+    assert get_metric("l2int").name == "l2int"
+    assert get_metric("l2").dist_dtype == torch.float32
+    with pytest.raises(ValueError, match="unknown metric 'cosine'"):
         get_metric("cosine")
+    with pytest.raises(ValueError, match="unknown metric 'cosine'"):
+        jax_get_metric("cosine")
+
+
+def _l2int_points(rng, n, dim=7):
+    """int32 coordinates with a few huge ones, whose squares wrap int32
+    in both packages."""
+    x = rng.integers(-300, 300, size=(n, dim), dtype=np.int32)
+    x[0, 0] = 2**31 - 1
+    x[1, 1] = -(2**31)
+    x[2, :] = 50_000
+    return x
+
+
+@pytest.mark.parametrize("fn", ["one_to_many", "pairwise", "pairwise_mxu"])
+def test_l2int_matches_jax(fn):
+    rng = np.random.default_rng(7)
+    a, b = _l2int_points(rng, 24), _l2int_points(rng, 40)
+    pm, jm = get_metric("l2int"), jax_get_metric("l2int")
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if fn == "one_to_many":
+        got = pm.one_to_many(ta[5], tb)
+        want = jm.one_to_many(jnp.asarray(a[5]), jnp.asarray(b))
+    else:
+        got = getattr(pm, fn)(ta, tb)
+        want = getattr(jm, fn)(jnp.asarray(a), jnp.asarray(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("fn", ["one_to_many", "pairwise", "pairwise_mxu"])
+def test_l2_matches_jax(fn):
+    rng = np.random.default_rng(8)
+    a = rng.normal(size=(24, 48)).astype(np.float32)
+    b = rng.normal(size=(40, 48)).astype(np.float32)
+    b[3] = a[4]  # a zero distance: the norm expansion clamps at 0
+    pm, jm = get_metric("l2"), jax_get_metric("l2")
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    if fn == "one_to_many":
+        got = pm.one_to_many(ta[5], tb)
+        want = jm.one_to_many(jnp.asarray(a[5]), jnp.asarray(b))
+    else:
+        got = getattr(pm, fn)(ta, tb)
+        want = getattr(jm, fn)(jnp.asarray(a), jnp.asarray(b))
+    assert got.dtype == torch.float32 and pm.inf == float("inf")
+    assert (got >= 0).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_batched_blocks_match_per_row():
+    """The leading axes of the port's distance blocks (the build's select
+    blocks) give the rows' own blocks, for both new metrics."""
+    rng = np.random.default_rng(9)
+    for name, x in (("l2int", _l2int_points(rng, 3 * 12)),
+                    ("l2", rng.normal(size=(36, 16)).astype(np.float32))):
+        m = get_metric(name)
+        t = torch.from_numpy(x).reshape(3, 12, -1)
+        got = m.pairwise_block(t, t)
+        for r in range(3):
+            np.testing.assert_array_equal(got[r].numpy(),
+                                          m.pairwise_mxu(t[r], t[r]).numpy())
+
+
+def test_sketches_u64_match_jax_and_round_trip():
+    from hnsw_itu_tpu.ops.metrics import sketches_from_u64 as jax_from
+    from hnsw_itu_tpu.ops.metrics import sketches_to_u64 as jax_to
+    from hnsw_itu_tpu_torch.ops.metrics import (sketches_from_u64,
+                                                sketches_to_u64)
+
+    rng = np.random.default_rng(10)
+    rows = rng.integers(0, 2**64, size=(9, 16), dtype=np.uint64)
+    rows[0] = 2**64 - 1
+    got = sketches_from_u64(rows)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got.view(np.uint32), jax_from(rows))
+    np.testing.assert_array_equal(sketches_to_u64(got), rows)
+    np.testing.assert_array_equal(sketches_to_u64(got.view(np.uint32)),
+                                  jax_to(jax_from(rows)))
+    with pytest.raises(ValueError, match="32 uint32 words"):
+        sketches_from_u64(rows[:, :8])
+
+
+def test_register_metric_mirrors_jax():
+    """Duplicates, junk and overwrite, as tests/test_register_metric.py
+    holds the JAX registry to."""
+    import hnsw_itu_tpu_torch.ops.metrics as mod
+    from hnsw_itu_tpu_torch import Metric, register_metric
+
+    class _L1(Metric):
+        def __init__(self):
+            super().__init__(name="l1-registry-test")
+
+        def one_to_many(self, q, pts):
+            return (pts - q.unsqueeze(-2)).abs().sum(dim=-1,
+                                                     dtype=torch.int32)
+
+    try:
+        m = register_metric(_L1())
+        assert get_metric("l1-registry-test") is m
+        with pytest.raises(ValueError, match="already registered"):
+            register_metric(_L1())
+        with pytest.raises(TypeError):
+            register_metric(object())
+        with pytest.raises(ValueError, match="non-empty"):
+            register_metric(Metric(""))
+        m2 = register_metric(_L1(), overwrite=True)  # rebinds the name
+        assert get_metric("l1-registry-test") is m2 is not m
+        a = torch.tensor([[0, 0], [3, -4]], dtype=torch.int32)
+        assert m2.pairwise(a, a).tolist() == [[0, 7], [7, 0]]
+    finally:
+        mod._REGISTRY.pop("l1-registry-test", None)
