@@ -4,6 +4,7 @@ NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--n 100000] [--nq 10000] [--mini-n 2200000]
                           [--build-n 1000000] [--cli-n 1000000]
+                          [--shards 4] [--shard-n 632512]
 
 Run from the root of a checkout. Phases, each printed as it ends:
 
@@ -120,7 +121,25 @@ Run from the root of a checkout. Phases, each printed as it ends:
      knns at k=10, ef=96 through the greedy descent: recall@10 >= 0.93,
      the device busy share of one batch, and the same call on CPU copies
      for 256 queries (dists within rtol 1e-5, ids equal where untied);
-     l2int: the point3d example on the card, its golden distances.
+     l2int: the point3d example on the card, its golden distances;
+ 17. sharding (``hnsw_itu_tpu_torch.parallel``) on a mesh that names the
+     one card ``shards`` times: (c), on phase 11's 1M index before it is
+     freed, knns_query_sharded at k=10, ef=32 with the sampled entry and
+     with the greedy descent (#6), dists and ids equal to the index's
+     single-device general route on every query, both timed; (b) a
+     4 x 50,000-point sharded build equal, shard by shard, to 1-shard
+     builds of the same rows; (a), with everything earlier freed,
+     ShardedHNSW.build of make_dataset(0, shards x shard_n, nq) (four of
+     the JAX 10M flagship's 632,512-point shards: efc=96, m=24, M=64,
+     4096-row chunks, each shard entered at its row 0) on #6 and #7, its
+     seconds, ns and edge drops; the oracle; enable_inline() with one
+     fused table a shard; knns at k=10 with the per-shard 1024-point
+     sampled entry at ef 32 to 128, best of 3, #1 launched once a shard a
+     call and its plain version never called; the headline is the smallest
+     ef with recall@10 >= 0.93 (the phase fails without one); at it every
+     shard's #1 against its plain version on every query, timed with its
+     bound, the entry, the merge against a numpy two-key merge, and one
+     call's device time by kernel; then the general route on 1000 queries.
 
 Every phase's seconds are logged (``phase seconds``).
 
@@ -195,6 +214,17 @@ HAM_SHAPES = [(7, 129, 32), (96, 96, 32), (130, 33, 5), (3, 72, 72, 32),
 # flat time says read latency bounds them, a rising one that their
 # per-step loops still cost
 SWEEP_EFS, SWEEP_STEPS = (32, 64, 96, 128), 32
+# phase 17: index sharding at one of the JAX 10M flagship's shards
+# (benches/run_sharded_10m.py: 10,120,192 points in 16 shards of 632,512,
+# each below the fused kernel's 2^21 ids); four of them fill one card
+SHARDS, SHARD_N = 4, 632_512
+# the JAX bench's and the 10M runner's shard options; batch_size caps the
+# sharded schedule's chunks (the single-card build's steady 4096 rows)
+SHARD_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
+                  batch_size=4096, host_warmup=0)
+SHARD_EFS = (32, 48, 64, 96, 128)
+INDEP_N = 50_000  # rows a shard of the shard-independence check
+GENERAL_Q = 1000  # queries of the sharded general route
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 # __popc: 16 results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
@@ -432,12 +462,13 @@ def phase_query(index, qs, gt_i, dev):
 
 
 def fused_at_served_shapes(index, qs, dev, smi, *, max_steps, tag,
-                           sweep=False):
-    """The fused kernel against its plain version on every query, with the
-    init keys knns makes (sampled entry, queries sorted by entry distance):
-    keys/visited/steps equal; both timed, the bytes the search must move
-    and their bound, the resident warps; with ``sweep`` also the ef sweep
-    at SWEEP_STEPS expansions."""
+                           sweep=False, ef=EF):
+    """The fused kernel against its plain version on every query at beam
+    width ``ef``, with the init keys knns makes (sampled entry, queries
+    sorted by entry distance): keys/visited/steps equal; both timed, the
+    bytes the search must move and their bound, the resident warps; with
+    ``sweep`` also the ef sweep at SWEEP_STEPS expansions. ``index`` needs
+    ``fused``, ``points``, ``n`` and ``metric``."""
     import torch
 
     from hnsw_itu_tpu_torch.models.nsw import _id_bits
@@ -488,10 +519,10 @@ def fused_at_served_shapes(index, qs, dev, smi, *, max_steps, tag,
         return err, k_ms, p_ms, nbytes, st, (
             float(got[2].float().mean()), float(got[1].float().mean()))
 
-    err, k_ms, p_ms, nbytes, st, (steps_q, vis_q) = check(EF, max_steps)
+    err, k_ms, p_ms, nbytes, st, (steps_q, vis_q) = check(ef, max_steps)
     b_ms = bound_ms(nbytes)
-    warps = _kernels.resident_warps("fused_beam_search", EF, table.width)
-    log(f"[{tag}] {B} queries at N={index.n}, ef={EF}, max_steps "
+    warps = _kernels.resident_warps("fused_beam_search", ef, table.width)
+    log(f"[{tag}] {B} queries at N={index.n}, ef={ef}, max_steps "
         f"{max_steps}: kernel vs plain max |diff| {err} over keys, visited, "
         f"steps (steps/q {steps_q:.2f}, visited/q {vis_q:.1f})")
     log(f"[{tag}] on {smi}: fused kernel {k_ms:.3f} ms ({warps} resident "
@@ -2022,6 +2053,281 @@ def phase_l2(nq, dev, smi):
     return rec
 
 
+def shard_mesh(dev, shards):
+    """A mesh that names the one card ``shards`` times."""
+    from hnsw_itu_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[dev] * shards)
+
+
+def phase_query_sharded(index, qs, gt_i, dev, shards):
+    """Phase 17 (c), on phase 11's 1M index before it is freed:
+    knns_query_sharded over ``shards`` shards of the card, with the
+    sampled entry and then the greedy descent (#6 at ef=1 per level),
+    held against the index's own single-device general route on every
+    query; both timed (host clock, one warm run, then one)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.parallel import knns_query_sharded
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    q = as_sketches(qs, dev)
+    mesh = shard_mesh(dev, shards)
+    fused, sample = index.fused, index.query_entry_sample
+    out = {}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, res
+
+    for entry in (SAMPLE, 0):
+        index.query_entry_sample = entry
+        dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            sh_ms, got = timed(lambda: knns_query_sharded(index, q, K, EF,
+                                                          mesh=mesh))
+        descent = (dma_beam_search.kernel_launches,
+                   dma_beam_search.plain_calls)
+        index.fused = None  # the single-device general route
+        single_ms, want = timed(lambda: index.knns(q, K, EF))
+        route = index.last_route
+        index.fused = fused
+        same = torch.equal(got.ids, want.ids) and torch.equal(got.dists,
+                                                              want.dists)
+        r10 = recall_at_k(got.ids.cpu().numpy(), gt_i, K)
+        name = "sampled" if entry else "descent"
+        out[name] = {"sharded_ms": sh_ms, "single_general_ms": single_ms,
+                     "equal": same, "recall": r10,
+                     "dma_launches": descent[0],
+                     "warned": len(warned)}
+        log(f"[17c] knns_query_sharded k={K} ef={EF} on {shards} shards of "
+            f"the card, {name} entry: {sh_ms:.1f} ms; the single-device "
+            f"general route ({route}) {single_ms:.1f} ms; dists and ids "
+            f"{'equal' if same else 'DIFFERENT'} on all {len(qs)} queries; "
+            f"recall@10 {r10:.4f}; #6 launches {descent[0]}, plain "
+            f"{descent[1]}; {len(warned)} warning(s): "
+            f"{str(warned[0].message)[:60] if warned else ''}")
+        if not same or route != "general" or descent[1] or (
+                entry == 0 and descent[0] <= 0):
+            raise AssertionError(f"query sharding, {name} entry: {out}")
+    index.query_entry_sample = sample
+    if not np.isfinite(out["sampled"]["recall"]):
+        raise AssertionError("query sharding recall")
+    return out
+
+
+def phase_shard_independence(dev, shards):
+    """Phase 17 (b): a ``shards``-shard build of INDEP_N points a shard on
+    the one card equals, shard by shard, a 1-shard build of that shard's
+    rows (adj, deg, ns, drops)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.parallel import ShardedHNSW
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    n = INDEP_N * shards
+    pts, _ = make_dataset(1, n, 1)
+    t0 = time.perf_counter()
+    idx = ShardedHNSW.build(pts, IndexOptions(size=n, **SHARD_OPTS),
+                            mesh=shard_mesh(dev, shards))
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for s in range(shards):
+        one = ShardedHNSW.build(
+            pts[s * INDEP_N : (s + 1) * INDEP_N],
+            IndexOptions(size=INDEP_N, **SHARD_OPTS),
+            mesh=shard_mesh(dev, 1))
+        same = (torch.equal(one.adj_s[0], idx.adj_s[s])
+                and torch.equal(one.deg_s[0], idx.deg_s[s])
+                and one.ns.tolist() == [int(idx.ns[s])]
+                and int(one.edge_drops_s[0]) == int(idx.edge_drops_s[s]))
+        if not same:
+            raise AssertionError(f"shard {s} of the {shards}-shard build != "
+                                 "a 1-shard build of its rows")
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    log(f"[17b] {shards} x {INDEP_N} points: the {shards}-shard build on "
+        f"one card ({multi_s:.1f} s) equals, shard by shard, 1-shard builds "
+        f"of the same rows ({single_s:.1f} s for all {shards}): adj, deg, "
+        f"ns, edge drops {[int(d) for d in idx.edge_drops_s]}")
+    return {"shard_n": INDEP_N, "multi_s": multi_s, "single_s": single_s,
+            "equal": True}
+
+
+def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
+    """Phase 17 (a): ShardedHNSW over ``shards`` x ``shard_n`` points on
+    ``shards`` shards of the one card; the oracle; one fused table a
+    shard; the ef sweep on the fused route (kernel #1 once per shard per
+    call) against the 0.93 gate; every shard's kernel launch against its
+    plain version at the headline ef; the merge against a numpy two-key
+    merge; the general route beside it."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.parallel import ShardedHNSW
+    from hnsw_itu_tpu_torch.parallel.sharded import _merge
+    from hnsw_itu_tpu_torch.utils import make_dataset, recall_at_k
+
+    n = shards * shard_n
+    t0 = time.perf_counter()
+    pts, qs = make_dataset(0, n, nq)
+    log(f"[17] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
+    opts = IndexOptions(size=n, **SHARD_OPTS)
+    for f in (dma_beam_search, hamming_block):
+        f.kernel_launches = f.plain_calls = 0
+    t0 = time.perf_counter()
+    idx = ShardedHNSW.build(pts, opts, mesh=shard_mesh(dev, shards))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rec = {"n": n, "shards": shards, "build_s": build_s,
+           "ns": idx.ns.tolist(),
+           "edge_drops": [int(d) for d in idx.edge_drops_s],
+           "dma_launches": dma_beam_search.kernel_launches,
+           "dma_plain": dma_beam_search.plain_calls,
+           "ham_launches": hamming_block.kernel_launches,
+           "ham_plain": hamming_block.plain_calls}
+    log(f"[17] ShardedHNSW.build of {n} points on {shards} shards of one "
+        f"card ({opts}): {build_s:.1f} s (host clock, synchronized); ns "
+        f"{rec['ns']}, edge drops {rec['edge_drops']}; #6 launches "
+        f"{rec['dma_launches']} (plain {rec['dma_plain']}), #7 launches "
+        f"{rec['ham_launches']} (plain {rec['ham_plain']})")
+    if min(rec["dma_launches"], rec["ham_launches"]) <= 0 or \
+            rec["dma_plain"] or rec["ham_plain"]:
+        raise AssertionError(f"sharded build did not run on the kernels: "
+                             f"{rec}")
+    gt_i = phase_oracle(pts, qs, dev, tag="17")
+    del pts
+    t0 = time.perf_counter()
+    idx.enable_inline()
+    torch.cuda.synchronize()
+    if idx.fused_s is None or len(idx.fused_s) != shards:
+        raise AssertionError("the fused tables were not built")
+    rec["table_bytes"] = sum((t.ids.numel() + t.data.numel()) * 4
+                             for t in idx.fused_s)
+    log(f"[17] {shards} fused tables {tuple(idx.fused_s[0].data.shape)}: "
+        f"{rec['table_bytes'] / 1e9:.3f} GB in all, built in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+
+    # the main path: knns on the fused route, counts zeroed just before
+    q = as_sketches(qs, dev)
+    fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    for ef in SHARD_EFS:  # one warm call at every ef before any is timed
+        idx.knns(q, K, ef)
+    sweep, results = {}, {}
+    for ef in SHARD_EFS:
+        best, res = best_of_3(lambda ef=ef: idx.knns(q, K, ef))
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        if ids.shape != (nq, K) or not ((ids >= 0) & (ids < n)).all() or \
+                not (np.diff(dists, axis=1) >= 0).all():
+            raise AssertionError(f"bad sharded result at ef={ef}")
+        r10 = recall_at_k(ids, gt_i, K)
+        sweep[ef] = {"knns_ms": best * 1e3, "recall": r10,
+                     "route": idx.last_route}
+        results[ef] = res
+        log(f"[17] knns k={K} ef={ef} (max_steps {idx._steps_cap(ef)}, "
+            f"sampled entry {idx.query_entry_sample} a shard), route "
+            f"{idx.last_route}: best of 3 {best * 1e3:.2f} ms for {nq} "
+            f"queries = {nq / best:,.0f} QPS, recall@10 {r10:.4f}")
+    launches = fused_beam_search.kernel_launches
+    plain = fused_beam_search.plain_calls
+    calls = 5 * len(SHARD_EFS)  # the warm call, best_of_3's four
+    log(f"[17] fused kernel launches {launches} in {calls} knns calls "
+        f"({shards} shards), plain_calls {plain}")
+    if launches != shards * calls or plain:
+        raise AssertionError(f"fused sharded launches {launches}, plain "
+                             f"{plain}, for {calls} calls")
+    passing = [ef for ef in SHARD_EFS if sweep[ef]["recall"] >= RECALL_GATE]
+    if not passing:
+        raise AssertionError(f"no ef <= 128 reaches recall@10 "
+                             f"{RECALL_GATE}: {sweep}")
+    ef_h = passing[0]
+    rec.update(launches=launches, calls=calls, sweep=sweep, ef=ef_h)
+    log(f"[17] headline: ef={ef_h}, the smallest ef meeting the "
+        f"{RECALL_GATE} gate; beside it phase 7's single-card mini path on "
+        f"2.2M: recall@10 {mini_ref['recall']:.4f}, knns "
+        f"{mini_ref['knns_ms']:.2f} ms at ef={EF}")
+
+    # every shard's launch against its plain version at the headline ef
+    steps = idx._steps_cap(ef_h)
+    rec["kernel"] = []
+    for s in range(shards):
+        view = SimpleNamespace(fused=idx.fused_s[s], points=idx.points_s[s],
+                               n=int(idx.ns[s]), metric=idx.metric)
+        r = fused_at_served_shapes(view, qs, dev, smi, max_steps=steps,
+                                   tag=f"17 shard {s}", ef=ef_h)
+        r["entry_ms"] = cuda_ms(r.pop("entry"), 10)
+        rec["kernel"].append(r)
+
+    # the merge: the device merge against a numpy two-key merge
+    parts = [idx._shard_topk(s, q, K, ef_h, "fused") for s in range(shards)]
+    d_np = np.concatenate([p[0].cpu().numpy() for p in parts], axis=1)
+    i_np = np.concatenate([p[1].cpu().numpy() for p in parts], axis=1)
+    o = np.lexsort((i_np, d_np), axis=1)[:, :K]
+    res = results[ef_h]
+    merge_equal = (
+        np.array_equal(res.dists.cpu().numpy(),
+                       np.take_along_axis(d_np, o, axis=1))
+        and np.array_equal(res.ids.cpu().numpy(),
+                           np.take_along_axis(i_np, o, axis=1)))
+    merge_ms = cuda_ms(lambda: _merge(parts, K, dev), 10)
+    total_ms, top = device_breakdown(lambda: idx.knns(q, K, ef_h))
+    rec.update(merge_equal=merge_equal, merge_ms=merge_ms,
+               device_ms=total_ms, device_top=top)
+    log(f"[17] on {smi}: merge of {shards} x [{nq}, {K}] "
+        f"{'equals' if merge_equal else 'DIFFERS FROM'} the numpy two-key "
+        f"merge; merge {merge_ms:.3f} ms; per shard: entry "
+        + ", ".join(f"{r['entry_ms']:.3f}" for r in rec["kernel"])
+        + " ms, #1 " + ", ".join(f"{r['ms']:.3f}" for r in rec["kernel"])
+        + " ms (bound " + ", ".join(f"{r['bound_ms']:.3f}"
+                                    for r in rec["kernel"])
+        + f" ms); one knns {total_ms:.3f} ms of device time: "
+        + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top))
+    if not merge_equal:
+        raise AssertionError("the sharded merge != the numpy merge")
+
+    # the general route beside it, on GENERAL_Q queries
+    fused_s, idx.fused_s = idx.fused_s, None
+    g_ms, g = best_of_3(lambda: idx.knns(q[:GENERAL_Q], K, ef_h))
+    g_route = idx.last_route
+    idx.fused_s = fused_s
+    g_ids = g.ids.cpu().numpy()
+    agree = float((g_ids[:, 0] == res.ids[:GENERAL_Q, 0].cpu().numpy())
+                  .mean())
+    rec["general"] = {"queries": len(g_ids), "knns_ms": g_ms * 1e3,
+                      "recall": recall_at_k(g_ids, gt_i[:GENERAL_Q], K),
+                      "top1_agree": agree}
+    log(f"[17] general route ({g_route}) on {len(g_ids)} queries at "
+        f"ef={ef_h}: {g_ms * 1e3:.1f} ms, recall@10 "
+        f"{rec['general']['recall']:.4f}; ids[:, 0] equal to the fused "
+        f"route's on {agree:.4f} of the queries")
+    if g_route != "general":
+        raise AssertionError(f"general route ran {g_route}")
+    del idx, fused_s, parts, results, res, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -2034,6 +2340,10 @@ def main(argv=None) -> int:
                     help="index points of the device-build phase")
     ap.add_argument("--cli-n", type=int, default=BUILD_N,
                     help="index points of the CLI-default phase")
+    ap.add_argument("--shards", type=int, default=SHARDS,
+                    help="shards of the sharding phase, all on the one card")
+    ap.add_argument("--shard-n", type=int, default=SHARD_N,
+                    help="points a shard of the sharding phase")
     args = ap.parse_args(argv)
 
     import torch
@@ -2141,6 +2451,9 @@ def main(argv=None) -> int:
     # phase 15 on the same index: a reordered copy on its own fused table
     reorder_fused = phase_reorder_fused(index, qs, gt_i, gt_d, dev, smi)
     lap("15, fused")
+    # phase 17 (c) on the same index: query sharding
+    qsharded = phase_query_sharded(index, qs, gt_i, dev, args.shards)
+    lap("17c")
     del index
     gc.collect()
     torch.cuda.empty_cache()
@@ -2181,6 +2494,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     l2 = phase_l2(args.nq, dev, smi)
     lap("16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 17: index sharding; each part zeroes its kernels' counts
+    indep = phase_shard_independence(dev, args.shards)
+    lap("17b")
+    sharded = phase_sharded(args.shards, args.shard_n, args.nq, dev, smi,
+                            mini_q[EF])
+    lap("17")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phase "
         "seconds " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     log("[7] record " + json.dumps({"build": {k: mini_build[k] for k in (
@@ -2195,6 +2516,11 @@ def main(argv=None) -> int:
         "ham_plain", "dma_plain")}))
     log("[13] record " + json.dumps({"nsw": nsw, "descent": [
         descent_100k, descent_1m]}))
+    log("[17] record " + json.dumps({
+        "index_sharding": {k: sharded[k] for k in sharded if k != "kernel"},
+        "kernel_per_shard": [{k: v for k, v in r.items() if k != "sweep"}
+                             for r in sharded["kernel"]],
+        "shard_independence": indep, "query_sharding": qsharded}))
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
         "route": "cuda",
@@ -2202,7 +2528,8 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES,
         "launches": launches,
         "max_abs_err": max(err_small, err_edge_fused, fused["max_abs_err"],
-                           served["kernel"]["max_abs_err"]),
+                           served["kernel"]["max_abs_err"],
+                           *(r["max_abs_err"] for r in sharded["kernel"])),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],
         "bound_ms": fused["bound_ms"],
@@ -2229,6 +2556,17 @@ def main(argv=None) -> int:
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "knns_ms", "unreordered_knns_ms", "recall", "tie_tolerant",
             "unreordered_tie_tolerant")},
+        # phase 17: one launch a shard per knns call on the sharded index,
+        # each shard's launch against its plain version at the headline ef
+        "sharded": {
+            "launches": sharded["launches"], "calls": sharded["calls"],
+            "ef": sharded["ef"],
+            "recall": sharded["sweep"][sharded["ef"]]["recall"],
+            "knns_ms": sharded["sweep"][sharded["ef"]]["knns_ms"],
+            "merge_ms": sharded["merge_ms"],
+            **{k: [r[k] for r in sharded["kernel"]] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "entry_ms",
+                "steps_q", "visited_q")}},
     }, {
         "name": "mini_beam_search",
         "route": "cuda",
@@ -2282,6 +2620,11 @@ def main(argv=None) -> int:
         "nsw_build_launches": nsw["dma_launches"],
         "mini_build_launches": mini_build["dma_launches"],  # phase 7
         "l2_build_launches": l2["dma_launches"],  # 0: not Hamming
+        # phase 17: the sharded build's searches (every shard), and the
+        # descent of knns_query_sharded
+        "sharded": {"launches": sharded["dma_launches"],
+                    "query_sharded_descent_launches":
+                        qsharded["descent"]["dma_launches"]},
     }, {
         "name": "hamming_block",
         "route": "cuda",
@@ -2304,6 +2647,8 @@ def main(argv=None) -> int:
         "nsw_build_launches": nsw["ham_launches"],
         "mini_build_launches": mini_build["ham_launches"],  # phase 7
         "l2_build_launches": l2["ham_launches"],  # 0: not Hamming
+        # phase 17: the sharded build's select and prune blocks
+        "sharded": {"launches": sharded["ham_launches"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

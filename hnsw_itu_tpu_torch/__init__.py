@@ -22,8 +22,15 @@ exact rerank, or the general beam search where no table serves); the
 brute-force oracle; the HNSW and NSW builds (the native host warmup, then
 the batched device build on the gather beam-search kernel, or the general
 beam search past its limits, and the dense Hamming kernel); the BFS
-reorder; ``.npz`` persistence of all three index kinds; and the
-six-command CLI (``cli.py``). Sharding is not ported yet.
+reorder; ``.npz`` persistence of all three index kinds; the six-command
+CLI (``cli.py``); and index and query sharding (``parallel/``).
+
+A sharded index takes a mesh, an ordered list of devices
+(``parallel.make_mesh(devices=[...])``), one per shard; one process
+drives every shard's work. A device may repeat, so S shards can share one
+card (``[torch.device("cuda", 0)] * 4``) and the CPU tests pass
+``["cpu"] * S``; ``make_mesh()`` takes every visible card and raises
+without one.
 """
 
 from .device import require_cuda

@@ -72,11 +72,13 @@ def fused_table_bytes(cap: int, width: int, words: int) -> int:
 
 
 def _fused_query_eligible(points: torch.Tensor, adj: torch.Tensor,
-                          metric) -> bool:
+                          metric, tables: int = 1) -> bool:
     """Can the fused kernel serve queries on this index? Needs the Hamming
     packed-key path, a fusable width, a clamp past half the metric bound
     (so ordering is intact where the beam works), and, on a CUDA device,
-    the table to fit the card's free memory (``torch.cuda.mem_get_info``).
+    ``tables`` tables of this shape to fit the card's free memory
+    (``torch.cuda.mem_get_info``) together: the shards of a sharded index
+    that share one card (``parallel/sharded.py``) are reckoned at once.
     On CPU tensors eligibility is decided by shape alone."""
     if metric.name != "hamming" or points is None:
         return False
@@ -87,7 +89,8 @@ def _fused_query_eligible(points: torch.Tensor, adj: torch.Tensor,
     if key_clamp(_id_bits(cap), words * 32) < words * 16:
         return False
     if points.device.type == "cuda":
-        need = fused_table_bytes(cap, width, words) + _QUERY_MARGIN_BYTES
+        need = tables * fused_table_bytes(cap, width, words) \
+            + _QUERY_MARGIN_BYTES
         return need <= _free_device_bytes(points.device)
     return True
 

@@ -3,8 +3,9 @@ loads in a process where ``import jax`` fails, and none of them pulls in
 ``hnsw_itu_tpu``, ``triton`` or ``h5py`` or builds a kernel. The modules
 that port code of a JAX module (the mini-table search, the build's
 kernels, select-neighbors, the graph mutations, the build steps, the
-visited bitmask, the general beam search, the NSW index, the metrics, the
-reorder, the CLI, its helpers and the examples) are also checked alone."""
+visited bitmask, the general beam search, the NSW index, the sharded
+indexes and their mesh, the metrics, the reorder, the CLI, its helpers and
+the examples) are also checked alone."""
 
 import os
 import subprocess
@@ -66,7 +67,8 @@ def test_mini_search_imports_alone_without_jax():
 @pytest.mark.parametrize("module", ["ops.dma_search", "ops.hamming",
                                     "ops.select", "graph", "models._build",
                                     "ops.bitset", "ops.search",
-                                    "models.nsw"])
+                                    "models.nsw", "parallel.mesh",
+                                    "parallel.sharded"])
 def test_build_modules_import_alone_without_jax(module):
     _imports_alone(module)
 

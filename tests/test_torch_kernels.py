@@ -12,8 +12,9 @@ merge (W = 128 and 24, rows that are all fresh or one id throughout, ids
 near 2^31 - 1, ids that collide in the set, ef = 1 and 128 with ef seeds,
 tie_bits 31; the cases of ``hnsw_itu_tpu_torch.testing``, which
 chip_smoke.py runs too) and with seeds that repeat an id; the dense
-Hamming block on odd and batched shapes. One test needs no card: the kernel libraries' names
-follow their included headers.
+Hamming block on odd and batched shapes; a 4-shard sharded build on one
+card and its fused knns against the same on CPU tensors. One test needs
+no card: the kernel libraries' names follow their included headers.
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest -p no:cacheprovider
@@ -431,3 +432,65 @@ def test_beam_kernels_repeated_seeds(cuda_device, w, ef, E, distinct, tie):
     table, q, d0, s = mini_edge_inputs(*inputs, 7, w, cuda_device)
     _mini_vs_plain(table, q, d0, s, ef=ef, mini_words=7, max_steps=256,
                    tie_bits=tie)
+
+
+_SHARDED = {}
+
+
+def _sharded_pair(device):
+    """The same 4-shard ShardedHNSW built on ``device`` (4 shards on one
+    card) and on CPU tensors, with its queries; built once, with the
+    kernels' launches during the card build."""
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.parallel import ShardedHNSW, make_mesh
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    if "pair" not in _SHARDED:
+        pts, qs = make_dataset(23, 4003, 64)
+        opts = dict(host_warmup=0, ef_construction=48, connections=12,
+                    max_connections=24, size=4003, batch_size=64)
+        before = (dma_beam_search.kernel_launches,
+                  hamming_block.kernel_launches)
+        card = ShardedHNSW.build(pts, IndexOptions(**opts),
+                                 mesh=make_mesh(devices=[device] * 4))
+        torch.cuda.synchronize()
+        launches = (dma_beam_search.kernel_launches - before[0],
+                    hamming_block.kernel_launches - before[1])
+        cpu = ShardedHNSW.build(pts, IndexOptions(**opts),
+                                mesh=make_mesh(devices=["cpu"] * 4))
+        _SHARDED["pair"] = (card, cpu, qs, launches)
+    return _SHARDED["pair"]
+
+
+@pytest.mark.cuda
+def test_sharded_build_on_card_matches_cpu(cuda_device):
+    """A 4-shard build on one card (kernels #6 and #7) equals the same
+    build on CPU tensors (their plain versions)."""
+    card, cpu, _, launches = _sharded_pair(cuda_device)
+    assert min(launches) > 0
+    for s in range(4):
+        assert card.adj_s[s].device.type == "cuda"
+        torch.testing.assert_close(card.adj_s[s].cpu(), cpu.adj_s[s],
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(card.deg_s[s].cpu(), cpu.deg_s[s],
+                                   rtol=0, atol=0)
+    assert card.ns.tolist() == cpu.ns.tolist()
+    assert [int(d) for d in card.edge_drops_s] == \
+        [int(d) for d in cpu.edge_drops_s]
+
+
+@pytest.mark.cuda
+def test_sharded_fused_knns_on_card_matches_cpu(cuda_device):
+    """The fused sharded knns on the card (kernel #1, once per shard)
+    equals the CPU one (its plain version)."""
+    card, cpu, qs, _ = _sharded_pair(cuda_device)
+    card.enable_inline()
+    cpu.enable_inline()
+    assert len(card.fused_s) == 4
+    before = fused_beam_search.kernel_launches
+    got = card.knns(qs, 10, 48)
+    torch.cuda.synchronize()
+    assert fused_beam_search.kernel_launches == before + 4
+    want = cpu.knns(qs, 10, 48)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
