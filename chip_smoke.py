@@ -5,6 +5,7 @@ NVIDIA GPU and check them.
     python3 chip_smoke.py [--n 100000] [--nq 10000] [--mini-n 2200000]
                           [--build-n 1000000] [--cli-n 1000000]
                           [--shards 4] [--shard-n 632512]
+                          [--flagship-n 10120192]
 
 Run from the root of a checkout. Phases, each printed as it ends:
 
@@ -139,7 +140,26 @@ Run from the root of a checkout. Phases, each printed as it ends:
      ef with recall@10 >= 0.93 (the phase fails without one); at it every
      shard's #1 against its plain version on every query, timed with its
      bound, the entry, the merge against a numpy two-key merge, and one
-     call's device time by kernel; then the general route on 1000 queries.
+     call's device time by kernel; then the general route on 1000 queries;
+ 18. the JAX 10M runner's configuration (benches/run_10m.py), with
+     everything earlier freed: make_dataset(0, flagship_n, nq) (10,120,192
+     points, results_10m.json's n) built on the card at the runner's
+     options (efc=96, m=24, M=64, batch_size 1024: 16,384-row chunks after
+     a 50k native warmup), its level sizes equal to the JAX builder's
+     draw, #6 and #7 launched and their plain versions never called, both
+     held to their plain versions at one build chunk; the oracle on the
+     card; the runner's attribution (the general route, ef=64, 2048
+     queries, entry samples 1024 and 65,536, dedup by beam); the mini
+     table the policy picks from the card's free memory (its W, mini_words,
+     bytes, seconds and the card's memory share), the runner's five plan
+     points and the JAX record's point (ef 64, hop 8, es 65,536) at k=10
+     over every query in batches of 8192, best of 3, each with recall@10,
+     tie-tolerant recall, launches (plain calls 0) and the entry, mini
+     kernel (with its bound) and rerank timed apart; recall@10 >= 0.93 at
+     the best point, where the mini kernel is held to its plain version on
+     every query; then, the policy's table freed, the table of the JAX
+     package's default budget (1.1e10 bytes: W=32, mini_words=7) at the
+     JAX record's point, held the same way.
 
 Every phase's seconds are logged (``phase seconds``).
 
@@ -186,7 +206,11 @@ BUILD_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
                   scan_group=8)
 # level sizes the JAX package's builder draws at these options: they depend
 # on the RNG alone, not on the data (BENCH_r05.json, its 1M and 100k legs)
-JAX_LEVEL_NS = {1_000_000: [41230, 1695, 78, 1], 100_000: [4183, 169, 10, 1]}
+JAX_LEVEL_NS = {1_000_000: [41230, 1695, 78, 1], 100_000: [4183, 169, 10, 1],
+                # phase 18, at the 10M runner's options (FLAGSHIP_OPTS):
+                # the JAX builder's _random_level stream at its seed
+                # (tests/test_torch_flagship.py)
+                10_120_192: [420726, 17766, 729, 26]}
 # the JAX CLI's query command (hnsw_itu_tpu/cli.py:287-292, 446-449): efc,
 # m and M from its flags, every other IndexOptions field at its default
 CLI_OPTS = dict(ef_construction=96, connections=24, max_connections=256,
@@ -225,6 +249,26 @@ SHARD_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
 SHARD_EFS = (32, 48, 64, 96, 128)
 INDEP_N = 50_000  # rows a shard of the shard-independence check
 GENERAL_Q = 1000  # queries of the sharded general route
+# phase 18: the JAX 10M runner's configuration (benches/run_10m.py; its
+# record benches/results_10m.json: 10,120,192 points, 10k queries, k=10)
+FLAGSHIP_N = 10_120_192
+# run_10m.py:83,96-98: batch_size 1024 past 4M points (16,384-row chunks);
+# every other IndexOptions field at its default, spelled out
+FLAGSHIP_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
+                     batch_size=1024, host_warmup=50_000, entry_sample=1024,
+                     scan_group=8)
+FLAGSHIP_QUERY_BATCH = 8192  # run_10m.py:245
+FLAGSHIP_GT_Q = 2048  # queries of the runner's attribution (run_10m.py:225)
+# the runner's plan past 4M points (run_10m.py:266-268): (ef, hop, entry
+# sample, max_steps; None: max(2 ef, 64))
+FLAGSHIP_PLAN = [(64, 0, 1024, None), (64, 8, 8192, 256), (96, 8, 8192, 256),
+                 (96, 8, 1024, None), (128, 8, 1024, None)]
+# the JAX record's point (results_10m.json: mini(mw=7)+hop8, recall@10
+# 0.931 at ef=64 with a 65,536-point entry sample)
+FLAGSHIP_JAX_POINT = (64, 8, 65_536, None)
+# the JAX package's table budget, HNSW_TPU_INLINE_QUERY_BYTES's default
+# (hnsw_itu_tpu/models/nsw.py:161-174): (W=32, mini_words=7) at 10M
+JAX_TABLE_BUDGET = int(1.1e10)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 # __popc: 16 results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
@@ -556,15 +600,16 @@ def phase_slice_shapes(index, qs, dev, smi, knns_s):
     return fused
 
 
-def mini_seeds(points, q, n, mw, beams):
+def mini_seeds(points, q, n, mw, beams, sample=SAMPLE):
     """Seeds of the mini path as HNSW.knns makes them: sampled entry (top
-    ``beams``), prefix distances, queries sorted by the nearest seed."""
+    ``beams`` of a ``sample``-point sample), prefix distances, queries
+    sorted by the nearest seed."""
     import torch
 
     from hnsw_itu_tpu_torch.ops.entry import sampled_entry_topk
     from hnsw_itu_tpu_torch.ops.metrics import HAMMING, popcount_sum
 
-    eps = sampled_entry_topk(points, q, n, sample_size=SAMPLE, beams=beams,
+    eps = sampled_entry_topk(points, q, n, sample_size=sample, beams=beams,
                              metric=HAMMING)[0]
     d0 = popcount_sum(points[eps.long(), :mw] ^ q[:, None, :mw])
     order = torch.argsort(d0.min(dim=1).values, stable=True)
@@ -579,7 +624,14 @@ def mini_bytes(st, visited, B, W, mw, ef):
     io = B * mw * 4 + B * 8 + B * ef * 8 + B * 8
     fresh = int(visited.long().sum()) - B
     return (st["rows"] * W * 4 + st["edges"] * mw * 4 + io,
-            st["rows"] * W * 4 + fresh * mw * 4 + io)
+            mini_ids_first_bytes(st["rows"], fresh, B, W, mw, ef))
+
+
+def mini_ids_first_bytes(rows, fresh, B, W, mw, ef):
+    """The ids-first count of ``mini_bytes`` (the kernel's bound) from the
+    search's row fetches (the sum of its steps) and fresh neighbors."""
+    return rows * W * 4 + fresh * mw * 4 + B * mw * 4 + B * 8 + B * ef * 8 \
+        + B * 8
 
 
 def mini_vs_plain(table, q, d0, eps, *, ef, max_steps, tie_bits=0,
@@ -984,11 +1036,11 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
     return worst, out, sweep
 
 
-def phase_device_build(n, nq, dev, *, cap=None, tag="9"):
+def phase_device_build(n, nq, dev, *, cap=None, tag="9", opts=BUILD_OPTS):
     """make_dataset + HNSWBuilder.extend_batched of ``n`` points into an
-    index of ``cap`` rows (default ``n``) at the bench's options: the
-    native host warmup, then the device chunks (gather kernel, Hamming
-    block kernel). Returns (pts, qs, index, record)."""
+    index of ``cap`` rows (default ``n``) at ``opts`` (the bench's options
+    by default): the native host warmup, then the device chunks (gather
+    kernel, Hamming block kernel). Returns (pts, qs, index, record)."""
     import torch
 
     from hnsw_itu_tpu_torch.models import IndexOptions
@@ -1002,8 +1054,8 @@ def phase_device_build(n, nq, dev, *, cap=None, tag="9"):
     pts, qs = make_dataset(0, n, nq)
     log(f"[{tag}] make_dataset(0, {n}, {nq}): "
         f"{time.perf_counter() - t0:.1f} s")
-    opts = IndexOptions(size=cap or n, **{**BUILD_OPTS, "host_warmup": min(
-        BUILD_OPTS["host_warmup"], n)})
+    opts = IndexOptions(size=cap or n, **{**opts, "host_warmup": min(
+        opts["host_warmup"], n)})
     b = HNSWBuilder(opts, device=dev)
     b.timings = {}
     warm_done = []
@@ -2328,6 +2380,268 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
     return rec
 
 
+def log_free(tag, what, dev):
+    """Log the card's free and total bytes (the driver's count) and what
+    PyTorch's allocator holds."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"[{tag}] card memory {what}: {free / 1e9:.3f} GB free of "
+        f"{total / 1e9:.3f} GB, PyTorch allocated "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB, reserved "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
+    return free, total
+
+
+def flagship_build_kernels(index, pts, dev, smi):
+    """#6 and #7 at one of the 10M build's chunks: the data's last
+    ``batch_size * 16`` points (the build's last chunk) searched over the
+    finished base layer at ef = efc from the sampled entry, and the select
+    block of their beams; each against its plain version and timed with
+    its bound."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
+    from hnsw_itu_tpu_torch.ops.metrics import (HAMMING, as_sketches,
+                                                popcount_sum)
+    from hnsw_itu_tpu_torch.ops.mini_search import IINF
+    from hnsw_itu_tpu_torch.ops.search import beam_search_gather
+
+    efc = FLAGSHIP_OPTS["ef_construction"]
+    B = FLAGSHIP_OPTS["batch_size"] * 16
+    q = as_sketches(pts[len(pts) - B:], dev)
+    adj, points = index.base.adj, index.points
+    W, words = adj.shape[1], points.shape[1]
+    eps = sampled_entry(points, q, index.n,
+                        sample_size=FLAGSHIP_OPTS["entry_sample"],
+                        metric=HAMMING)
+    d0 = popcount_sum(points[eps.long()] ^ q)
+    kw = dict(ef=efc, max_steps=2048)  # search_select's expansion bound
+    err, (keys, vis, stp) = gather_vs_plain(adj, points, None, q, d0, eps,
+                                            **kw)
+    if err:
+        raise AssertionError("gather kernel != plain at a 10M build chunk")
+    k6 = cuda_ms(lambda: dma_beam_search(adj, points, None, q, d0, eps, **kw),
+                 5)
+    p6 = cuda_ms(lambda: beam_search_gather(adj, points, None, q, d0, eps,
+                                            **kw), 1)
+    rows, fresh = int(stp.long().sum()), int(vis.long().sum()) - B
+    b6 = bound_ms(gather_bytes(rows, fresh, B, W, words, efc))
+    log(f"[18] on {smi}: gather kernel at a {index.n}-point build chunk "
+        f"({B} searches, ef={efc}): {k6:.3f} ms, plain {p6:.3f} ms, bound "
+        f"{b6:.4f} ms ({rows / B:.2f} steps/q, {(fresh + B) / B:.1f} "
+        f"visited/q); kernel vs plain max |diff| {err}")
+    bi = (keys & 0xFFFFFFFF).to(torch.int32)
+    cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
+    ham = hamming_vs_plain(cand, f"select, one {index.n}-point chunk", smi,
+                           "18")
+    if max_abs_diff((mxu_block(cand, cand),), (HAMMING.pairwise_block(
+            cand, cand),)):
+        raise AssertionError("pairwise_mxu route != hamming block")
+    ham["library_ms"] = cuda_ms(lambda: mxu_block(cand, cand), 5)
+    log(f"[18] on {smi}: pairwise_mxu route {ham['library_ms']:.3f} ms at "
+        "the same block")
+    return {"dma": {"max_abs_err": err, "ms": k6, "plain_ms": p6,
+                    "bound_ms": b6, "searches": B, "ef": efc,
+                    "steps_q": rows / B, "visited_q": (fresh + B) / B},
+            "ham": ham}
+
+
+def flagship_point(index, q, gt_i, gt_d, smi, point, tag):
+    """One plan point on the index's mini table: knns at k=10 over every
+    query (``point`` = (ef, hop, entry sample, max_steps)), best of 3 warm
+    calls, recall@10 and tie-tolerant recall, the mini kernel's launches
+    in those calls (plain calls must be 0); then, apart from the counted
+    calls, the three parts of a call at its shapes timed by CUDA events:
+    the sampled entry, the mini kernel (with its ids-first bound) and the
+    rerank. Returns (record, the kernel's inputs for an exactness check)."""
+    import numpy as np
+
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
+    from hnsw_itu_tpu_torch.ops.metrics import HAMMING
+    from hnsw_itu_tpu_torch.ops.mini_search import (mini_beam_search,
+                                                    rerank_exact,
+                                                    rerank_onehop)
+    from hnsw_itu_tpu_torch.utils import recall_at_k, recall_tie_tolerant
+
+    ef, hop, es, cap = point
+    index.query_hop, index.query_entry_sample, index.max_steps = hop, es, cap
+    nq, steps = q.shape[0], index._steps_cap(ef)
+    table, W, mw = index.mini, index.mini_W, index.mini_words
+    # the main path: knns on the mini route, counts zeroed just before
+    mini_beam_search.kernel_launches = mini_beam_search.plain_calls = 0
+    best, res = best_of_3(lambda: index.knns(q, K, ef))
+    launches = mini_beam_search.kernel_launches
+    plain = mini_beam_search.plain_calls
+    calls = 4 * -(-nq // index.query_batch)  # best_of_3: a warm call + 3
+    if index.last_route != "mini" or launches != calls or plain:
+        raise AssertionError(f"[{tag}] {point}: route {index.last_route}, "
+                             f"launches {launches}, plain calls {plain}")
+    ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+    if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
+            or not (np.diff(dists, axis=1) >= 0).all():
+        raise AssertionError(f"[{tag}] bad result at {point}")
+    rec = recall_at_k(ids, gt_i, K)
+    rtt = recall_tie_tolerant(dists, gt_d, K)
+    vis_q = index.last_stats["visited"] / nq
+    steps_q = index.last_stats["steps"] / nq
+    # the parts of one call at its shapes, outside the counted calls
+    pts, adj = index.points, index._base().adj
+    entry_ms = cuda_ms(lambda: sampled_entry(pts, q, index.n, sample_size=es,
+                                             metric=HAMMING), 3)
+    qs_o, d0, eps = mini_seeds(pts, q, index.n, mw, 1, sample=es)
+    kw = dict(ef=max(ef, K), mini_words=mw, max_steps=steps)
+    _, beam, vis, stp = mini_beam_search(table, qs_o, d0, eps, **kw)
+    k_ms = cuda_ms(lambda: mini_beam_search(table, qs_o, d0, eps, **kw), 3)
+    b_ms = bound_ms(mini_ids_first_bytes(
+        int(stp.long().sum()), int(vis.long().sum()) - nq, nq, W, mw,
+        kw["ef"]))
+    if hop:
+        r_ms = cuda_ms(lambda: rerank_onehop(pts, adj, qs_o, beam, k=K,
+                                             seeds=hop), 3)
+    else:
+        r_ms = cuda_ms(lambda: rerank_exact(pts, qs_o, beam, k=K), 3)
+    out = {"ef": ef, "hop": hop, "entry_sample": es, "max_steps": steps,
+           "knns_ms": best * 1e3, "qps": nq / best, "recall": rec,
+           "tie_tolerant": rtt, "visited_q": vis_q, "steps_q": steps_q,
+           "launches": launches, "plain_calls": plain, "entry_ms": entry_ms,
+           "ms": k_ms, "bound_ms": b_ms, "rerank_ms": r_ms}
+    log(f"[{tag}] on {smi}: ef={ef} hop={hop} es={es} max_steps={steps}: "
+        f"route {index.last_route}, best of 3 {best * 1e3:.2f} ms for {nq} "
+        f"queries = {nq / best:,.0f} QPS, recall@10 {rec:.4f} (tie-tolerant "
+        f"{rtt:.4f}), visited/q {vis_q:.1f}, steps/q {steps_q:.2f}, mini "
+        f"kernel launches {launches}, plain_calls {plain}; parts by CUDA "
+        f"events: entry {entry_ms:.3f} ms, mini kernel {k_ms:.3f} ms (bound "
+        f"{b_ms:.3f} ms), rerank {r_ms:.3f} ms")
+    return out, (qs_o, d0, eps, kw)
+
+
+def flagship_table(index, q, gt_i, gt_d, dev, smi, plan, *, budget, tag):
+    """Build one mini table on the 10M index (the policy's pick from the
+    card's free memory when ``budget`` is None, else ``_mini_config_for``
+    at that byte budget), log its pick, bytes, seconds and the card's
+    memory share, run every plan point, and hold the mini kernel against
+    its plain version on every query at the headline point: the fastest
+    with recall@10 >= the gate, else the most recall."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models.nsw import _mini_config_for
+    from hnsw_itu_tpu_torch.ops.mini_search import (materialize_mini,
+                                                    mini_beam_search_plain)
+
+    log_free(tag, "before the table", dev)
+    t0 = time.perf_counter()
+    if budget is None:
+        index.enable_inline()
+    else:
+        adj = index._base().adj
+        W, mw = _mini_config_for(index.points, adj, index.metric,
+                                 budget_bytes=budget)
+        index.mini = materialize_mini(index.points, adj[:, :W],
+                                      mini_words=mw)
+        index.mini_words, index.mini_W = mw, W
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if index.fused is not None or index.mini is None:
+        raise AssertionError(f"[{tag}] no mini table")
+    W, mw = index.mini_W, index.mini_words
+    gb = index.mini.numel() * 4 / 1e9
+    free, total = log_free(tag, "with the table", dev)
+    share = (total - free) / total
+    src = "the policy" if budget is None else f"budget {budget:.3e} B"
+    log(f"[{tag}] mini table ({src}): W={W}, mini_words={mw}, "
+        f"{tuple(index.mini.shape)} int32 = {gb:.3f} GB, built in "
+        f"{secs:.2f} s; the card is {100 * share:.1f}% in use")
+    runs = [flagship_point(index, q, gt_i, gt_d, smi, p, tag) for p in plan]
+    recs = [r for r, _ in runs]
+    met = [r for r in recs if r["recall"] >= RECALL_GATE]
+    head = max(met, key=lambda r: r["qps"]) if met else \
+        max(recs, key=lambda r: r["recall"])
+    qs_o, d0, eps, kw = runs[recs.index(head)][1]
+    st = {}
+    err, got = mini_vs_plain(index.mini, qs_o, d0, eps, stats=st, **{
+        k: v for k, v in kw.items() if k != "mini_words"})
+    whole = mini_bytes(st, got[2], q.shape[0], W, mw, kw["ef"])[0]
+    p_ms = cuda_ms(lambda: mini_beam_search_plain(index.mini, qs_o, d0, eps,
+                                                  **kw), 1)
+    head.update(max_abs_err=err, plain_ms=p_ms,
+                bound_whole_rows_ms=bound_ms(whole))
+    log(f"[{tag}] headline ef={head['ef']} hop={head['hop']} "
+        f"es={head['entry_sample']}: mini kernel vs plain on all "
+        f"{q.shape[0]} queries max |diff| {err} over d, ids, visited, steps; "
+        f"on {smi}: kernel {head['ms']:.3f} ms, plain {p_ms:.3f} ms "
+        f"(whole-row bound {bound_ms(whole):.3f} ms)")
+    if err:
+        raise AssertionError(f"[{tag}] mini kernel != plain at 10M")
+    return {"W": W, "mini_words": mw, "table_gb": gb, "seconds": secs,
+            "memory_share": share, "budget": budget, "headline": head,
+            "points": recs}
+
+
+def phase_flagship(n, nq, dev, smi):
+    """Phase 18: the JAX 10M runner's configuration on the card."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.utils import recall_at_k, recall_tie_tolerant
+
+    log_free("18", "before the build", dev)
+    pts, qs, index, build = phase_device_build(n, nq, dev, tag="18",
+                                               opts=FLAGSHIP_OPTS)
+    kern = flagship_build_kernels(index, pts, dev, smi)
+    t0 = time.perf_counter()
+    gt_i, gt_d = phase_oracle(pts, qs, dev, tag="18", with_dists=True)
+    build["oracle_s"] = time.perf_counter() - t0
+    del pts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the runner's attribution: the general route (exact distances), ef=64
+    # on its 2048 queries, at two entry samples
+    q = as_sketches(qs, dev)
+    index.query_batch = FLAGSHIP_QUERY_BATCH
+    index.query_dedup = "beam"  # run_10m.py:247: no [B, N] bitmask at 10M
+    attrib = {}
+    G = min(FLAGSHIP_GT_Q, nq)
+    for es in (SAMPLE, MINI_WIDE_SAMPLE):
+        index.query_entry_sample = es
+        t0 = time.perf_counter()
+        res = index.knns(q[:G], K, 64)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if index.last_route != "general":
+            raise AssertionError(f"attribution ran on {index.last_route}")
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        attrib[es] = {"recall": recall_at_k(ids, gt_i[:G], K),
+                      "tie_tolerant": recall_tie_tolerant(dists, gt_d[:G], K),
+                      "seconds": secs}
+        log(f"[18] attribution, the general route (exact distances), ef=64, "
+            f"es={es}, {G} queries: recall@10 {attrib[es]['recall']:.4f} "
+            f"(tie-tolerant {attrib[es]['tie_tolerant']:.4f}), {secs:.2f} s")
+
+    policy = flagship_table(index, q, gt_i, gt_d, dev, smi,
+                            FLAGSHIP_PLAN + [FLAGSHIP_JAX_POINT], budget=None,
+                            tag="18")
+    if policy["headline"]["recall"] < RECALL_GATE:
+        raise AssertionError(f"[18] no plan point reaches recall@10 "
+                             f"{RECALL_GATE}")
+    index.mini = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    jax_table = flagship_table(index, q, gt_i, gt_d, dev, smi,
+                               [FLAGSHIP_JAX_POINT], budget=JAX_TABLE_BUDGET,
+                               tag="18, JAX budget")
+    r = jax_table["points"][0]
+    log(f"[18] the JAX budget's table (W={jax_table['W']}, mini_words="
+        f"{jax_table['mini_words']}) at the JAX record's point: recall@10 "
+        f"{r['recall']:.4f} (the policy's W={policy['W']}, mini_words="
+        f"{policy['mini_words']}: {policy['points'][-1]['recall']:.4f}; the "
+        "JAX record, benches/results_10m.json: 0.931)")
+    return {"build": build, "kernels": kern, "attribution": attrib,
+            "policy": policy, "jax_budget": jax_table}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -2344,6 +2658,9 @@ def main(argv=None) -> int:
                     help="shards of the sharding phase, all on the one card")
     ap.add_argument("--shard-n", type=int, default=SHARD_N,
                     help="points a shard of the sharding phase")
+    ap.add_argument("--flagship-n", type=int, default=FLAGSHIP_N,
+                    help="index points of the 10M phase (above 2^21, so "
+                    "that the mini table serves)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2502,6 +2819,11 @@ def main(argv=None) -> int:
     sharded = phase_sharded(args.shards, args.shard_n, args.nq, dev, smi,
                             mini_q[EF])
     lap("17")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 18: the 10M runner's configuration, with everything else freed
+    flagship = phase_flagship(args.flagship_n, args.nq, dev, smi)
+    lap("18")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phase "
         "seconds " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     log("[7] record " + json.dumps({"build": {k: mini_build[k] for k in (
@@ -2521,6 +2843,9 @@ def main(argv=None) -> int:
         "kernel_per_shard": [{k: v for k, v in r.items() if k != "sweep"}
                              for r in sharded["kernel"]],
         "shard_independence": indep, "query_sharding": qsharded}))
+    log("[18] record " + json.dumps({k: flagship[k] for k in (
+        "build", "attribution", "policy", "jax_budget")}))
+    fl_build = flagship["build"]
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
         "route": "cuda",
@@ -2574,7 +2899,9 @@ def main(argv=None) -> int:
         "replaces": MINI_REPLACES,
         "also_replaces": MINI_COVERS,
         "launches": mini_launches,
-        "max_abs_err": max(err_small_mini, err_edge_mini, err_mini),
+        "max_abs_err": max(err_small_mini, err_edge_mini, err_mini, *(
+            flagship[t]["headline"]["max_abs_err"]
+            for t in ("policy", "jax_budget"))),
         "ms": mini[EF]["ms"],
         "plain_ms": mini[EF]["plain_ms"],
         "bound_ms": mini[EF]["bound_ms"],
@@ -2587,6 +2914,15 @@ def main(argv=None) -> int:
         "knns": {str(ef): v for ef, v in mini_q.items()},
         # phase 15: the reordered 2.2M copy at bit-reversed tie order
         "reordered": reorder_mini,
+        # phase 18: the 10M index, its launches over every plan point of
+        # both tables, and each table's headline point held to the plain
+        # version on every query
+        "flagship": {"n": args.flagship_n, "launches": sum(
+            r["launches"] for t in ("policy", "jax_budget")
+            for r in flagship[t]["points"]), **{
+                t: {k: flagship[t][k] for k in ("W", "mini_words",
+                                                "table_gb", "headline")}
+                for t in ("policy", "jax_budget")}},
     }, {
         "name": "dma_beam_search",
         "route": "cuda",
@@ -2595,6 +2931,7 @@ def main(argv=None) -> int:
         "launches": build["dma_launches"],
         "max_abs_err": max(err_small_dma, err_edge_dma,
                            bk["dma"]["max_abs_err"],
+                           flagship["kernels"]["dma"]["max_abs_err"],
                            descent_100k["max_abs_err"],
                            descent_1m["max_abs_err"]),
         "ms": bk["dma"]["ms"],
@@ -2625,6 +2962,11 @@ def main(argv=None) -> int:
         "sharded": {"launches": sharded["dma_launches"],
                     "query_sharded_descent_launches":
                         qsharded["descent"]["dma_launches"]},
+        # phase 18: the 10M build's searches, and one of its chunks
+        "flagship_build": {"launches": fl_build["dma_launches"],
+                           **{k: fl_build[k] for k in ("level_ns",
+                                                       "edge_drops")},
+                           "chunk": flagship["kernels"]["dma"]},
     }, {
         "name": "hamming_block",
         "route": "cuda",
@@ -2632,6 +2974,7 @@ def main(argv=None) -> int:
         "replaces": HAM_REPLACES,
         "launches": build["ham_launches"],
         "max_abs_err": max(err_small_ham, bk["ham"]["max_abs_err"],
+                           flagship["kernels"]["ham"]["max_abs_err"],
                            *(v["max_abs_err"] for v in cli["ham"].values())),
         "ms": bk["ham"]["ms"],
         "plain_ms": bk["ham"]["plain_ms"],
@@ -2649,6 +2992,9 @@ def main(argv=None) -> int:
         "l2_build_launches": l2["ham_launches"],  # 0: not Hamming
         # phase 17: the sharded build's select and prune blocks
         "sharded": {"launches": sharded["ham_launches"]},
+        # phase 18: the 10M build's blocks, and one chunk's select block
+        "flagship_build": {"launches": fl_build["ham_launches"],
+                           "chunk": flagship["kernels"]["ham"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
