@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's query paths and its batched builds once on one
-NVIDIA GPU and check them.
+NVIDIA GPU and check them; with ``--cards 4``, its sharded paths on four.
 
     python3 chip_smoke.py [--n 100000] [--nq 10000] [--mini-n 2200000]
                           [--build-n 1000000] [--cli-n 1000000]
                           [--shards 4] [--shard-n 632512]
-                          [--flagship-n 10120192]
+                          [--flagship-n 10120192] [--cards 1|4]
 
-Run from the root of a checkout. Phases, each printed as it ends:
+Run from the root of a checkout. Phases 1-18 run by default, on card 0;
+``--cards 4`` runs phase 1 and phase 19 alone, and raises below four
+cards. Phases, each printed as it ends:
 
   1. card and build: nvidia-smi's name and power limit, torch and CUDA
      versions, and the four kernels compiled by nvcc from
@@ -160,10 +162,39 @@ Run from the root of a checkout. Phases, each printed as it ends:
      every query; then, the policy's table freed, the table of the JAX
      package's default budget (1.1e10 bytes: W=32, mini_words=7) at the
      JAX record's point, held the same way.
+ 19. (``--cards 4`` only) the sharded paths on four cards (the builds in
+     one worker process a card, ``parallel/mesh.py`` ``map_devices``; the
+     queries from this process's loop): (a) ShardedHNSW.build
+     of 4 x shard_n points at phase 17's options on a mesh naming card 0
+     four times and on the four cards, in the order one, four, four, one,
+     each build equal shard by shard to the first, the host seconds, their
+     ratio and the CUDA-event build spans per card; then knns at k=10,
+     ef=32 on both meshes' fused tables, ids and dists equal, both timed;
+     (b) knns_query_sharded over phase 9's build_n-point device-built
+     index on the four cards, with the sampled entry and the greedy
+     descent, equal on every query to the same call on card 0 four times
+     and to the index's general route, all three timed; (c) the JAX
+     sharded runner's configuration (benches/run_sharded_10m.py):
+     make_dataset(0, flagship_n, nq) in 16 shards of 632,512 as one
+     ShardedHNSW over the four cards (four contiguous shards and 21.4 GB
+     of fused tables a card), its build on #6 and #7 (spans per card; both
+     held to their plain versions at one chunk of the last card), the
+     oracle, knns at ef 32 to 128 against the 0.93 gate with #1 launched
+     once a shard a call, every shard's #1 against its plain version at
+     ef=32 on every query on its card, the per-card entry and #1 times,
+     the merge against numpy; (d) the runner's own recipe on the same
+     data: 16 HNSWBuilder indexes (efc=96, m=24, M=64, batch_size 256, a
+     20k native warmup), one worker process a card building and serving
+     its four shards, the four cards at once, each shard served
+     on its fused table (query batch 8192, 1024-point sampled entry,
+     max_steps = ef) at ef 48 and 32, best of 2, ids shifted by the shard
+     offset and merged by (distance, id): recall@10 beside the runner's
+     record, build seconds per shard, per card and wall.
 
 Every phase's seconds are logged (``phase seconds``).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (with ``--cards 4``
+that of #1, #6 and #7 on phase 19's path); the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits nonzero
 without that line; so does a machine without CUDA, and a directory
 without the package.
@@ -269,6 +300,21 @@ FLAGSHIP_JAX_POINT = (64, 8, 65_536, None)
 # the JAX package's table budget, HNSW_TPU_INLINE_QUERY_BYTES's default
 # (hnsw_itu_tpu/models/nsw.py:161-174): (W=32, mini_words=7) at 10M
 JAX_TABLE_BUDGET = int(1.1e10)
+# phase 19 (--cards 4): the JAX sharded runner (benches/run_sharded_10m.py,
+# its record benches/results_sharded_10m.json) over four cards: its
+# 10,120,192 points in 16 shards of 632,512, four contiguous shards a card
+CARDS = 4
+RUNNER_SHARDS = 16
+FLAGSHIP_CARD_EFS = (32, 48, 64, 128)  # 19c's sweep of the ShardedHNSW
+# 19d: the runner's own recipe, each shard a full HNSWBuilder index
+# (run_sharded_10m.py:117-119), served at its query settings (:151-154)
+RUNNER_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
+                   batch_size=256, host_warmup=20_000)
+RUNNER_EFS = (48, 32)
+RUNNER_QUERY_BATCH = 8192
+# recall@10 of the record at each ef, measured on a TPU (a reference for
+# recall, not for time)
+RUNNER_JAX_RECALL = {48: 0.9995, 32: 0.9994}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 # __popc: 16 results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
@@ -278,6 +324,26 @@ POPC_PER_S = 16 * 132 * 1.98e9
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sync_cards() -> None:
+    """Wait for every visible card: ``torch.cuda.synchronize()`` alone
+    waits for the current one only, and a sharded call runs on all."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def timed(fn):
+    """(host-clock ms of one ``fn()`` after a warm one, every card
+    synchronized around it, its result)."""
+    fn()
+    sync_cards()
+    t0 = time.perf_counter()
+    res = fn()
+    sync_cards()
+    return (time.perf_counter() - t0) * 1e3, res
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -334,12 +400,14 @@ def phase_card():
 
     from hnsw_itu_tpu_torch.ops import _kernels
 
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    ).stdout.strip().splitlines()
+    for line in cards:
+        log(line)  # each card's name and power limit, as nvidia-smi gives them
+    smi = cards[0]
     log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}, python {sys.version.split()[0]}")
@@ -1720,16 +1788,15 @@ def phase_nsw(nq, dev):
 
 
 def best_of_3(fn):
-    """(best host-clock seconds of 3 runs after a warm one, last result)."""
-    import torch
-
+    """(best host-clock seconds of 3 runs after a warm one, every card
+    synchronized around each, last result)."""
     fn()
-    torch.cuda.synchronize()
+    sync_cards()
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         res = fn()
-        torch.cuda.synchronize()
+        sync_cards()
         best = min(best, time.perf_counter() - t0)
     return best, res
 
@@ -2132,15 +2199,6 @@ def phase_query_sharded(index, qs, gt_i, dev, shards):
     mesh = shard_mesh(dev, shards)
     fused, sample = index.fused, index.query_entry_sample
     out = {}
-
-    def timed(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, res
-
     for entry in (SAMPLE, 0):
         index.query_entry_sample = entry
         dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
@@ -2193,7 +2251,7 @@ def phase_shard_independence(dev, shards):
     t0 = time.perf_counter()
     idx = ShardedHNSW.build(pts, IndexOptions(size=n, **SHARD_OPTS),
                             mesh=shard_mesh(dev, shards))
-    torch.cuda.synchronize()
+    sync_cards()
     multi_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for s in range(shards):
@@ -2208,7 +2266,7 @@ def phase_shard_independence(dev, shards):
         if not same:
             raise AssertionError(f"shard {s} of the {shards}-shard build != "
                                  "a 1-shard build of its rows")
-    torch.cuda.synchronize()
+    sync_cards()
     single_s = time.perf_counter() - t0
     log(f"[17b] {shards} x {INDEP_N} points: the {shards}-shard build on "
         f"one card ({multi_s:.1f} s) equals, shard by shard, 1-shard builds "
@@ -2248,7 +2306,7 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
         f.kernel_launches = f.plain_calls = 0
     t0 = time.perf_counter()
     idx = ShardedHNSW.build(pts, opts, mesh=shard_mesh(dev, shards))
-    torch.cuda.synchronize()
+    sync_cards()
     build_s = time.perf_counter() - t0
     rec = {"n": n, "shards": shards, "build_s": build_s,
            "ns": idx.ns.tolist(),
@@ -2270,7 +2328,7 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
     del pts
     t0 = time.perf_counter()
     idx.enable_inline()
-    torch.cuda.synchronize()
+    sync_cards()
     if idx.fused_s is None or len(idx.fused_s) != shards:
         raise AssertionError("the fused tables were not built")
     rec["table_bytes"] = sum((t.ids.numel() + t.data.numel()) * 4
@@ -2397,50 +2455,59 @@ def flagship_build_kernels(index, pts, dev, smi):
     """#6 and #7 at one of the 10M build's chunks: the data's last
     ``batch_size * 16`` points (the build's last chunk) searched over the
     finished base layer at ef = efc from the sampled entry, and the select
-    block of their beams; each against its plain version and timed with
-    its bound."""
+    block of their beams (``chunk_kernels``)."""
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
+    from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches
+
+    B = FLAGSHIP_OPTS["batch_size"] * 16
+    q = as_sketches(pts[len(pts) - B:], dev)
+    eps = sampled_entry(index.points, q, index.n,
+                        sample_size=FLAGSHIP_OPTS["entry_sample"],
+                        metric=HAMMING)
+    return chunk_kernels(index.base.adj, index.points, q, eps,
+                         FLAGSHIP_OPTS["ef_construction"], smi, "18",
+                         f"a {index.n}-point build chunk")
+
+
+def chunk_kernels(adj, points, q, eps, efc, smi, tag, what):
+    """#6 and #7 at one build chunk, on the current card: the rows ``q``
+    searched over the finished graph ``adj`` at ef = ``efc`` from
+    ``eps``, and the select block of their beams; each against its plain
+    version and timed with its bound (#7 also beside the ``pairwise_mxu``
+    route, its library call)."""
     import torch
 
     from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
-    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
-    from hnsw_itu_tpu_torch.ops.metrics import (HAMMING, as_sketches,
-                                                popcount_sum)
+    from hnsw_itu_tpu_torch.ops.metrics import HAMMING, popcount_sum
     from hnsw_itu_tpu_torch.ops.mini_search import IINF
     from hnsw_itu_tpu_torch.ops.search import beam_search_gather
 
-    efc = FLAGSHIP_OPTS["ef_construction"]
-    B = FLAGSHIP_OPTS["batch_size"] * 16
-    q = as_sketches(pts[len(pts) - B:], dev)
-    adj, points = index.base.adj, index.points
+    B = q.shape[0]
     W, words = adj.shape[1], points.shape[1]
-    eps = sampled_entry(points, q, index.n,
-                        sample_size=FLAGSHIP_OPTS["entry_sample"],
-                        metric=HAMMING)
     d0 = popcount_sum(points[eps.long()] ^ q)
     kw = dict(ef=efc, max_steps=2048)  # search_select's expansion bound
     err, (keys, vis, stp) = gather_vs_plain(adj, points, None, q, d0, eps,
                                             **kw)
     if err:
-        raise AssertionError("gather kernel != plain at a 10M build chunk")
+        raise AssertionError(f"gather kernel != plain at {what}")
     k6 = cuda_ms(lambda: dma_beam_search(adj, points, None, q, d0, eps, **kw),
                  5)
     p6 = cuda_ms(lambda: beam_search_gather(adj, points, None, q, d0, eps,
                                             **kw), 1)
     rows, fresh = int(stp.long().sum()), int(vis.long().sum()) - B
     b6 = bound_ms(gather_bytes(rows, fresh, B, W, words, efc))
-    log(f"[18] on {smi}: gather kernel at a {index.n}-point build chunk "
-        f"({B} searches, ef={efc}): {k6:.3f} ms, plain {p6:.3f} ms, bound "
-        f"{b6:.4f} ms ({rows / B:.2f} steps/q, {(fresh + B) / B:.1f} "
-        f"visited/q); kernel vs plain max |diff| {err}")
+    log(f"[{tag}] on {smi}: gather kernel at {what} ({B} searches, "
+        f"ef={efc}): {k6:.3f} ms, plain {p6:.3f} ms, bound {b6:.4f} ms "
+        f"({rows / B:.2f} steps/q, {(fresh + B) / B:.1f} visited/q); kernel "
+        f"vs plain max |diff| {err}")
     bi = (keys & 0xFFFFFFFF).to(torch.int32)
     cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
-    ham = hamming_vs_plain(cand, f"select, one {index.n}-point chunk", smi,
-                           "18")
+    ham = hamming_vs_plain(cand, f"select, {what}", smi, tag)
     if max_abs_diff((mxu_block(cand, cand),), (HAMMING.pairwise_block(
             cand, cand),)):
         raise AssertionError("pairwise_mxu route != hamming block")
     ham["library_ms"] = cuda_ms(lambda: mxu_block(cand, cand), 5)
-    log(f"[18] on {smi}: pairwise_mxu route {ham['library_ms']:.3f} ms at "
+    log(f"[{tag}] on {smi}: pairwise_mxu route {ham['library_ms']:.3f} ms at "
         "the same block")
     return {"dma": {"max_abs_err": err, "ms": k6, "plain_ms": p6,
                     "bound_ms": b6, "searches": B, "ef": efc,
@@ -2642,6 +2709,645 @@ def phase_flagship(n, nq, dev, smi):
             "policy": policy, "jax_budget": jax_table}
 
 
+def card_mesh(cards, shards):
+    """A mesh of ``shards`` entries over the first ``cards`` cards, each
+    card holding ``shards / cards`` contiguous shards."""
+    from hnsw_itu_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[f"cuda:{s * cards // shards}"
+                              for s in range(shards)])
+
+
+def same_shards(a, b) -> bool:
+    """Two sharded builds equal shard by shard: adj, deg, ns, drops."""
+    import torch
+
+    return (a.ns.tolist() == b.ns.tolist()
+            and [int(d) for d in a.edge_drops_s]
+            == [int(d) for d in b.edge_drops_s]
+            and all(torch.equal(x.cpu(), y.cpu())
+                    for x, y in zip(a.adj_s + a.deg_s, b.adj_s + b.deg_s)))
+
+
+def phase_overlap(shard_n, nq, cards, smi):
+    """Phase 19a: ShardedHNSW.build of ``cards`` x ``shard_n`` points at
+    SHARD_OPTS on a mesh naming card 0 ``cards`` times and on a mesh of
+    ``cards`` cards, in the order one, four, four, one; every build equal
+    shard by shard to the first; host seconds and the CUDA-event build
+    spans per card; then enable_inline and knns at k=10, ef=32 on both
+    meshes: ids and dists equal, both timed."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.parallel import ShardedHNSW, make_mesh
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    n = cards * shard_n
+    t0 = time.perf_counter()
+    pts, qs = make_dataset(0, n, nq)
+    log(f"[19a] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
+    meshes = {"one": make_mesh(devices=["cuda:0"] * cards),
+              "cards": make_mesh(cards)}
+    where = {"one": f"card 0 {cards} times", "cards": f"{cards} cards"}
+    opts = IndexOptions(size=n, **SHARD_OPTS)
+    # warmed before timing: this process's context on every card, card
+    # 0's allocator, and the fork server the four-card build's workers
+    # come from (started once a process; its first use timed apart)
+    for d in set(meshes["cards"].devices):
+        torch.zeros(1, device=d)
+    warm = pts[: cards * 2048]
+    first = {}
+    for name, mesh in meshes.items():
+        t0 = time.perf_counter()
+        ShardedHNSW.build(warm, IndexOptions(size=len(warm), **SHARD_OPTS),
+                          mesh=mesh)
+        sync_cards()
+        first[name] = time.perf_counter() - t0
+    log(f"[19a] first use, {len(warm)} points: {first['one']:.2f} s on "
+        f"{where['one']}, {first['cards']:.2f} s on {where['cards']} (the "
+        "fork server's start included)")
+    rec = {"n": n, "cards": cards, "builds": [], "first_use_s": first}
+    kept = {}
+    for name in ("one", "cards", "cards", "one"):
+        for f in (dma_beam_search, hamming_block):
+            f.kernel_launches = f.plain_calls = 0
+        timings = {}
+        sync_cards()
+        t0 = time.perf_counter()
+        idx = ShardedHNSW.build(pts, opts, mesh=meshes[name],
+                                timings=timings)
+        sync_cards()
+        secs = time.perf_counter() - t0
+        spans = {str(d): t for d, t in timings.items()}
+        b = {"mesh": name, "build_s": secs, "spans_ms": spans,
+             "dma_launches": dma_beam_search.kernel_launches,
+             "dma_plain": dma_beam_search.plain_calls,
+             "ham_launches": hamming_block.kernel_launches,
+             "ham_plain": hamming_block.plain_calls}
+        ref = kept.setdefault("ref", idx)
+        b["equal"] = idx is ref or same_shards(idx, ref)
+        kept.setdefault(name, idx)
+        rec["builds"].append(b)
+        log(f"[19a] ShardedHNSW.build of {n} points on {where[name]}: "
+            f"{secs:.2f} s (host clock, every card synchronized); ns "
+            f"{idx.ns.tolist()}, edge drops "
+            f"{[int(d) for d in idx.edge_drops_s]}; #6 launches "
+            f"{b['dma_launches']} (plain {b['dma_plain']}), #7 launches "
+            f"{b['ham_launches']} (plain {b['ham_plain']}); "
+            + ("equal to the first build shard by shard" if b["equal"]
+               else "DIFFERENT from the first build"))
+        for d, sp in spans.items():
+            log(f"[19a]   CUDA-event spans on {d}: "
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in sp.items()))
+        if not b["equal"] or b["dma_plain"] or b["ham_plain"] or min(
+                b["dma_launches"], b["ham_launches"]) <= 0:
+            raise AssertionError(f"[19a] build on mesh {name}: {b}")
+        del idx
+    one = [b["build_s"] for b in rec["builds"] if b["mesh"] == "one"]
+    many = [b for b in rec["builds"] if b["mesh"] == "cards"]
+    # the longest card's own build, inside its worker: the rest of the
+    # four-card time is this process's uploads and the workers' start
+    work = [max(sp["wall"] for sp in b["spans_ms"].values()) / 1e3
+            for b in many]
+    many = [b["build_s"] for b in many]
+    rec.update(ratio=sum(one) / sum(many), workers_build_s=work,
+               ratio_in_workers=sum(one) / sum(work))
+    log(f"[19a] on {smi}: build {sum(one) / 2:.2f} s on one card, "
+        f"{sum(many) / 2:.2f} s on {cards} cards (means of two each): "
+        f"{rec['ratio']:.2f}x; inside the workers the longest card took "
+        f"{sum(work) / 2:.2f} s ({rec['ratio_in_workers']:.2f}x); the "
+        f"uploads and the workers' start {(sum(many) - sum(work)) / 2:.2f}"
+        " s")
+
+    q = as_sketches(qs, "cuda:0")
+    res = {}
+    for name in ("one", "cards"):
+        idx = kept[name]
+        idx.enable_inline()
+        if idx.fused_s is None:
+            raise AssertionError(f"[19a] no fused tables on mesh {name}")
+        fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+        best, res[name] = best_of_3(lambda: idx.knns(q, K, EF))
+        rec[f"knns_ms_{name}"] = best * 1e3
+        rec[f"fused_launches_{name}"] = fused_beam_search.kernel_launches
+        if (fused_beam_search.plain_calls or idx.last_route != "fused"
+                or fused_beam_search.kernel_launches != 4 * cards):
+            raise AssertionError(f"[19a] knns on mesh {name}: route "
+                                 f"{idx.last_route}, launches "
+                                 f"{fused_beam_search.kernel_launches}")
+    rec["knns_equal"] = (torch.equal(res["one"].ids, res["cards"].ids)
+                         and torch.equal(res["one"].dists,
+                                         res["cards"].dists))
+    log(f"[19a] on {smi}: knns k={K} ef={EF} (sampled entry {SAMPLE} a "
+        f"shard, fused): best of 3 {rec['knns_ms_one']:.2f} ms on one card, "
+        f"{rec['knns_ms_cards']:.2f} ms on {cards} cards; ids and dists "
+        f"{'equal' if rec['knns_equal'] else 'DIFFERENT'} on all {nq} "
+        "queries")
+    if not rec["knns_equal"]:
+        raise AssertionError("[19a] knns differs between the meshes")
+    del kept, res, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_query_cards(build_n, nq, cards, smi):
+    """Phase 19b: knns_query_sharded at k=10, ef=32 over phase 9's
+    ``build_n``-point device-built index on ``cards`` cards, with the
+    sampled entry and then the greedy descent: ids and dists equal to the
+    same call on a mesh naming card 0 ``cards`` times, and to the index's
+    own general route, on every query; all three timed."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.parallel import knns_query_sharded, make_mesh
+
+    dev = torch.device("cuda", 0)
+    _, qs, index, build = phase_device_build(build_n, nq, dev, tag="19b")
+    q = as_sketches(qs, dev)
+    meshes = {"cards": make_mesh(cards),
+              "one": make_mesh(devices=[dev] * cards)}
+    rec = {"n": build_n, "build": {k: build[k] for k in (
+        "host_s", "device_s", "level_ns", "edge_drops")}}
+    for entry in (SAMPLE, 0):
+        index.query_entry_sample = entry
+        name = "sampled" if entry else "descent"
+        r, got = {}, {}
+        for m, mesh in meshes.items():
+            dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
+            r[f"{m}_ms"], got[m] = timed(
+                lambda mesh=mesh: knns_query_sharded(index, q, K, EF,
+                                                     mesh=mesh))
+            r[f"{m}_dma_launches"] = dma_beam_search.kernel_launches
+            if dma_beam_search.plain_calls or (
+                    entry == 0 and dma_beam_search.kernel_launches <= 0):
+                raise AssertionError(f"[19b] {name} descent on #6: {r}")
+        r["general_ms"], want = timed(lambda: index.knns(q, K, EF))
+        route = index.last_route
+        r["equal"] = all(torch.equal(g.ids, want.ids)
+                         and torch.equal(g.dists, want.dists)
+                         for g in got.values())
+        rec[name] = r
+        log(f"[19b] on {smi}: knns_query_sharded k={K} ef={EF}, {name} "
+            f"entry: {r['cards_ms']:.1f} ms on {cards} cards, "
+            f"{r['one_ms']:.1f} ms on card 0 {cards} times; the index's "
+            f"general route ({route}) {r['general_ms']:.1f} ms; ids and "
+            f"dists {'equal' if r['equal'] else 'DIFFERENT'} on all "
+            f"{len(qs)} queries; #6 launches {r['cards_dma_launches']} / "
+            f"{r['one_dma_launches']}")
+        if not r["equal"] or route != "general":
+            raise AssertionError(f"[19b] query sharding, {name}: {r}")
+    del index, q, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flagship_cards(n, nq, cards, smi):
+    """Phase 19c: the JAX sharded runner's 16 x 632,512 points (n split in
+    RUNNER_SHARDS) as one ShardedHNSW over ``cards`` cards, four
+    contiguous shards a card; the build at SHARD_OPTS, the oracle,
+    enable_inline, the ef sweep against the 0.93 gate, every shard's #1
+    against its plain version at ef=32 on every query, the merge against
+    numpy. Returns (record, (pts, qs, gt_i)) for 19d."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.ops.metrics import as_sketches
+    from hnsw_itu_tpu_torch.parallel import ShardedHNSW
+    from hnsw_itu_tpu_torch.parallel.sharded import _merge
+    from hnsw_itu_tpu_torch.utils import make_dataset, recall_at_k
+
+    S = RUNNER_SHARDS
+    t0 = time.perf_counter()
+    pts, qs = make_dataset(0, n, nq)
+    log(f"[19c] make_dataset(0, {n}, {nq}): {time.perf_counter() - t0:.1f} s")
+    mesh = card_mesh(cards, S)
+    opts = IndexOptions(size=n, **SHARD_OPTS)
+    # the main path: counts zeroed just before the build, read after
+    for f in (dma_beam_search, hamming_block):
+        f.kernel_launches = f.plain_calls = 0
+    timings = {}
+    t0 = time.perf_counter()
+    idx = ShardedHNSW.build(pts, opts, mesh=mesh, timings=timings)
+    sync_cards()
+    build_s = time.perf_counter() - t0
+    rec = {"n": n, "shards": S, "cards": cards, "build_s": build_s,
+           "ns": idx.ns.tolist(),
+           "edge_drops": [int(d) for d in idx.edge_drops_s],
+           "spans_ms": {str(d): t for d, t in timings.items()},
+           "dma_launches": dma_beam_search.kernel_launches,
+           "dma_plain": dma_beam_search.plain_calls,
+           "ham_launches": hamming_block.kernel_launches,
+           "ham_plain": hamming_block.plain_calls}
+    log(f"[19c] ShardedHNSW.build of {n} points in {S} shards over {cards} "
+        f"cards ({opts}): {build_s:.1f} s (host clock); ns {rec['ns']}; "
+        f"edge drops {rec['edge_drops']}; #6 launches {rec['dma_launches']} "
+        f"(plain {rec['dma_plain']}), #7 launches {rec['ham_launches']} "
+        f"(plain {rec['ham_plain']})")
+    for d, sp in rec["spans_ms"].items():
+        log(f"[19c]   CUDA-event spans on {d}: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in sp.items()))
+    if min(rec["dma_launches"], rec["ham_launches"]) <= 0 or \
+            rec["dma_plain"] or rec["ham_plain"]:
+        raise AssertionError(f"[19c] build did not run on the kernels: {rec}")
+    gt_i = phase_oracle(pts, qs, torch.device("cuda", 0), tag="19c")
+
+    # #6 and #7 at one build chunk of the last card's last shard
+    s = S - 1
+    dev = mesh.devices[s]
+    ns_last = int(idx.ns[s])
+    rows = SHARD_OPTS["batch_size"]
+    with torch.cuda.device(dev):
+        chunk = idx.points_s[s][ns_last - rows : ns_last].contiguous()
+        rec["chunk"] = chunk_kernels(
+            idx.adj_s[s], idx.points_s[s], chunk,
+            torch.zeros(rows, dtype=torch.int32, device=dev),
+            SHARD_OPTS["ef_construction"], smi, "19c",
+            f"shard {s}'s last {rows} rows on {dev}")
+
+    t0 = time.perf_counter()
+    idx.enable_inline()
+    sync_cards()
+    if idx.fused_s is None:
+        raise AssertionError("[19c] the fused tables were not built")
+    rec["table_gb_per_card"] = sum(
+        (t.ids.numel() + t.data.numel()) * 4 for t in idx.fused_s) / 1e9 \
+        / cards
+    log(f"[19c] {S} fused tables, {rec['table_gb_per_card']:.3f} GB a card, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    for d in dict.fromkeys(mesh.devices):
+        log_free("19c", f"of {d} with its tables", d)
+
+    q = as_sketches(qs, "cuda:0")
+    fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    for ef in FLAGSHIP_CARD_EFS:  # one warm call at every ef first
+        idx.knns(q, K, ef)
+    sweep, results = {}, {}
+    for ef in FLAGSHIP_CARD_EFS:
+        best, res = best_of_3(lambda ef=ef: idx.knns(q, K, ef))
+        ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
+        if ids.shape != (nq, K) or not ((ids >= 0) & (ids < n)).all() or \
+                not (np.diff(dists, axis=1) >= 0).all():
+            raise AssertionError(f"[19c] bad sharded result at ef={ef}")
+        sweep[ef] = {"knns_ms": best * 1e3, "recall": recall_at_k(
+            ids, gt_i, K), "route": idx.last_route}
+        results[ef] = res
+        log(f"[19c] on {smi}: knns k={K} ef={ef} (max_steps "
+            f"{idx._steps_cap(ef)}, sampled entry {idx.query_entry_sample} "
+            f"a shard), route {idx.last_route}: best of 3 "
+            f"{best * 1e3:.2f} ms for {nq} queries = {nq / best:,.0f} QPS, "
+            f"recall@10 {sweep[ef]['recall']:.4f}")
+    calls = 5 * len(FLAGSHIP_CARD_EFS)  # the warm call, best_of_3's four
+    rec.update(fused_launches=fused_beam_search.kernel_launches,
+               fused_plain=fused_beam_search.plain_calls, calls=calls,
+               sweep=sweep)
+    log(f"[19c] fused kernel launches {rec['fused_launches']} in {calls} "
+        f"knns calls ({S} shards), plain_calls {rec['fused_plain']}")
+    if rec["fused_launches"] != S * calls or rec["fused_plain"]:
+        raise AssertionError(f"[19c] fused launches: {rec}")
+    if max(v["recall"] for v in sweep.values()) < RECALL_GATE:
+        raise AssertionError(f"[19c] no ef reaches recall@10 {RECALL_GATE}")
+
+    # every shard's #1 against its plain version at ef=32, on its card
+    steps = idx._steps_cap(EF)
+    rec["kernel"] = []
+    for s in range(S):
+        dev = mesh.devices[s]
+        view = SimpleNamespace(fused=idx.fused_s[s], points=idx.points_s[s],
+                               n=int(idx.ns[s]), metric=idx.metric)
+        with torch.cuda.device(dev):
+            r = fused_at_served_shapes(view, qs, dev, smi, max_steps=steps,
+                                       tag=f"19c shard {s} on {dev}", ef=EF)
+            r["entry_ms"] = cuda_ms(r.pop("entry"), 10)
+        r["device"] = str(dev)
+        rec["kernel"].append(r)
+    per_card = {}
+    for r in rec["kernel"]:
+        c = per_card.setdefault(r["device"], {"entry_ms": 0.0, "ms": 0.0})
+        c["entry_ms"] += r["entry_ms"]
+        c["ms"] += r["ms"]
+    rec["per_card"] = per_card
+    log(f"[19c] on {smi}: per card at ef={EF}, CUDA events summed over its "
+        "shards: " + "; ".join(f"{d} entry {v['entry_ms']:.3f} ms, #1 "
+                               f"{v['ms']:.3f} ms" for d, v in
+                               per_card.items()))
+
+    # the merge against a numpy two-key merge, at ef=32
+    lead = mesh.devices[0]
+    parts = [idx._shard_topk(s, as_sketches(qs, mesh.devices[s]), K, EF,
+                             "fused") for s in range(S)]
+    d_np = np.concatenate([p[0].cpu().numpy() for p in parts], axis=1)
+    i_np = np.concatenate([p[1].cpu().numpy() for p in parts], axis=1)
+    o = np.lexsort((i_np, d_np), axis=1)[:, :K]
+    res = results[EF]
+    rec["merge_equal"] = (
+        np.array_equal(res.dists.cpu().numpy(),
+                       np.take_along_axis(d_np, o, axis=1))
+        and np.array_equal(res.ids.cpu().numpy(),
+                           np.take_along_axis(i_np, o, axis=1)))
+    rec["merge_ms"] = cuda_ms(lambda: _merge(parts, K, lead), 10)
+    log(f"[19c] on {smi}: merge of {S} x [{nq}, {K}] from {cards} cards "
+        f"{'equals' if rec['merge_equal'] else 'DIFFERS FROM'} the numpy "
+        f"two-key merge; {rec['merge_ms']:.3f} ms on {lead} (CUDA events, "
+        "the copies across cards included)")
+    if not rec["merge_equal"]:
+        raise AssertionError("[19c] the sharded merge != the numpy merge")
+    del idx, parts, results, res, view, chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the shards' tensors, shared with the build's workers, are free again
+    rec["reserved_after_gb"] = [torch.cuda.memory_reserved(d) / 1e9
+                                for d in dict.fromkeys(mesh.devices)]
+    log(f"[19c] index freed: PyTorch reserves "
+        + ", ".join(f"{g:.3f}" for g in rec["reserved_after_gb"])
+        + " GB on the cards")
+    return rec, (pts, qs, gt_i)
+
+
+def runner_group(device, shards, parts, *, opts, efs, q, k, query_batch,
+                 sample):
+    """One card's part of the JAX sharded runner's loop
+    (benches/run_sharded_10m.py:136-170), run by ``map_devices``: each of
+    its shards (``parts``: its points, a tensor on ``device``) built as
+    its own HNSWBuilder index at ``opts`` on ``device``, served at the
+    runner's settings (``query_batch``, ``sample``, enable_inline) and
+    queried with the host queries ``q`` at every ef of ``efs`` with
+    ``max_steps = ef``: a warm call, then the best of 2 timed (host clock,
+    synchronized). Returns one record a shard: build seconds, level
+    sizes, route, per ef its (dists, ids) as host arrays and best ms, and
+    the wall-clock times its work began and ended."""
+    import torch
+
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
+    from hnsw_itu_tpu_torch.ops.metrics import as_points
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = []
+    for pts in parts:
+        began = time.time()
+        t0 = time.perf_counter()
+        b = HNSWBuilder(IndexOptions(size=len(pts), **{
+            **opts, "host_warmup": min(opts["host_warmup"], len(pts))}),
+            device=device)
+        b.extend_batched(pts)
+        index = b.build()
+        sync()
+        rec = {"build_s": time.perf_counter() - t0,
+               "level_ns": index.level_ns, "points": {}}
+        index.query_batch = query_batch
+        index.query_entry_sample = sample
+        index.enable_inline()
+        qd = as_points(q, device)
+        for ef in efs:
+            index.max_steps = ef
+            index.knns(qd, k, ef)
+            best = float("inf")
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                res = index.knns(qd, k, ef)
+                sync()
+                best = min(best, time.perf_counter() - t0)
+            rec["points"][ef] = (res.dists.cpu().numpy(),
+                                 res.ids.cpu().numpy(), best * 1e3)
+        rec.update(route=index.last_route, began=began, ended=time.time())
+        out.append(rec)
+        del b, index
+    return out
+
+
+def runner(pts, shards, mesh, q, *, opts=None, efs=None,
+           query_batch=RUNNER_QUERY_BATCH, sample=SAMPLE, k=K):
+    """The JAX sharded runner's recipe over ``mesh`` (one entry a shard):
+    ``pts`` split into ``shards`` equal contiguous shards, each uploaded
+    to its device, ``runner_group`` on every card at once
+    (``map_devices``: one worker process a card, sharing the shards'
+    tensors, each building and querying its shards in order), then per ef
+    the ids shifted by the shard offset and the exact (distance, id)
+    merge of the shards' top-k (run_sharded_10m.py:160-203). Returns (per
+    ef (dists, ids) int64 [nq, k], one record a shard with its work's
+    wall-clock times made relative to the call)."""
+    import functools
+
+    import numpy as np
+
+    from hnsw_itu_tpu_torch.ops.metrics import as_points
+    from hnsw_itu_tpu_torch.parallel.mesh import map_devices
+
+    per = len(pts) // shards
+    efs = RUNNER_EFS if efs is None else efs
+    work = functools.partial(
+        runner_group, opts=RUNNER_OPTS if opts is None else opts, efs=efs,
+        q=np.asarray(q), k=k, query_batch=query_batch, sample=sample)
+    recs = [None] * shards
+    parts = [as_points(pts[s * per : (s + 1) * per], mesh.devices[s])
+             for s in range(shards)]
+    t_call = time.time()
+    for group, out in map_devices(mesh, work, parts):
+        for s, r in zip(group, out):
+            r["began"] -= t_call
+            r["ended"] -= t_call
+            recs[s] = r
+    del parts
+    imax = np.iinfo(np.int32).max
+    merged = {}
+    for ef in efs:
+        all_d, all_i = [], []
+        for s, r in enumerate(recs):
+            d, i = (x.astype(np.int64) for x in r["points"][ef][:2])
+            ok = (i >= 0) & (i < imax)
+            all_d.append(np.where(ok, d, imax))
+            all_i.append(np.where(ok, i + s * per, -1))
+        all_d, all_i = np.concatenate(all_d, 1), np.concatenate(all_i, 1)
+        o = np.lexsort((all_i, all_d), axis=1)[:, :k]
+        merged[ef] = (np.take_along_axis(all_d, o, axis=1),
+                      np.take_along_axis(all_i, o, axis=1))
+    return merged, recs
+
+
+def phase_runner(pts, qs, gt_i, cards, smi):
+    """Phase 19d: the JAX sharded runner's recipe on the 19c data: 16
+    HNSWBuilder shards, one worker process a card, each card building and
+    serving its four shards in order, all four cards at once; each shard on
+    its fused table at ef 48 and 32 (max_steps = ef), best of 2 warm
+    calls; merged; recall@10 beside the runner's record."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+    from hnsw_itu_tpu_torch.utils import recall_at_k
+
+    S = RUNNER_SHARDS
+    mesh = card_mesh(cards, S)
+    fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    t0 = time.perf_counter()
+    merged, recs = runner(pts, S, mesh, qs)
+    wall = time.perf_counter() - t0
+    per_card = {}
+    for s, d in enumerate(mesh.devices):
+        c = per_card.setdefault(str(d), {
+            "build_s": 0.0, "began_s": recs[s]["began"], **{
+                f"knns_ms_ef{ef}": 0.0 for ef in RUNNER_EFS}})
+        c["build_s"] += recs[s]["build_s"]
+        c["ended_s"] = recs[s]["ended"]
+        for ef in RUNNER_EFS:
+            c[f"knns_ms_ef{ef}"] += recs[s]["points"][ef][2]
+    routes = {r["route"] for r in recs}
+    rec = {"n": len(pts), "shards": S, "opts": RUNNER_OPTS, "wall_s": wall,
+           "build_s": [r["build_s"] for r in recs], "per_card": per_card,
+           "level_ns": [r["level_ns"] for r in recs],
+           "fused_launches": fused_beam_search.kernel_launches,
+           "fused_plain": fused_beam_search.plain_calls, "points": {}}
+    log(f"[19d] {S} HNSWBuilder shards of {len(pts) // S} points "
+        f"({RUNNER_OPTS}), one worker process a card on {cards} cards: "
+        f"{wall:.1f} s wall for the builds and queries; per shard build "
+        + ", ".join(f"{r['build_s']:.1f}" for r in recs) + " s; per card "
+        + "; ".join(f"{d} build {v['build_s']:.1f} s, its work from "
+                    f"{v['began_s']:.1f} to {v['ended_s']:.1f} s after the "
+                    "call" for d, v in per_card.items()))
+    for ef in RUNNER_EFS:
+        r10 = recall_at_k(merged[ef][1], gt_i, K)
+        ms = [r["points"][ef][2] for r in recs]
+        rec["points"][ef] = {"recall": r10, "shard_ms": ms,
+                             "jax_record": RUNNER_JAX_RECALL[ef]}
+        log(f"[19d] on {smi}: ef={ef} (max_steps {ef}, sampled entry "
+            f"{SAMPLE}, query batch {RUNNER_QUERY_BATCH}), routes "
+            f"{sorted(routes)}: per shard best of 2 {min(ms):.2f}-"
+            f"{max(ms):.2f} ms for {len(qs)} queries; merged recall@10 "
+            f"{r10:.4f} (the JAX record, benches/results_sharded_10m.json, "
+            f"measured on a TPU: {RUNNER_JAX_RECALL[ef]})")
+    if routes != {"fused"} or rec["fused_plain"] or \
+            rec["fused_launches"] <= 0:
+        raise AssertionError(f"[19d] routes {routes}, fused launches "
+                             f"{rec['fused_launches']}, plain "
+                             f"{rec['fused_plain']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lap_timer():
+    """(lap, seconds, start): ``lap(name)`` logs and keeps the seconds
+    since the previous lap (or the start) under ``name``."""
+    t_start = time.perf_counter()
+    seconds, t_last = {}, [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - t_last[0]
+        t_last[0] = now
+        log(f"[{name}] phase seconds {seconds[name]:.1f}")
+
+    return lap, seconds, t_start
+
+
+def main_cards(args) -> int:
+    """``--cards 4``: the card check, the kernel build and phase 19, with
+    its own kernels line and the ok line; raises below ``args.cards``
+    cards (no fallback to fewer)."""
+    import torch
+
+    have = torch.cuda.device_count()
+    if have < args.cards:
+        raise RuntimeError(f"--cards {args.cards}: {have} card(s) visible; "
+                           f"phase 19 runs on {args.cards} and has no "
+                           "fallback")
+    lap, seconds, t_start = lap_timer()
+    smi = phase_card()
+    lap("1")
+    overlap = phase_overlap(args.shard_n, args.nq, args.cards, smi)
+    lap("19a")
+    qcards = phase_query_cards(args.build_n, args.nq, args.cards, smi)
+    lap("19b")
+    flag, data = phase_flagship_cards(args.flagship_n, args.nq, args.cards,
+                                      smi)
+    lap("19c")
+    runner = phase_runner(*data, args.cards, smi)
+    lap("19d")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; phase "
+        "seconds " + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    log("[19] record " + json.dumps({
+        "overlap": overlap, "query_sharding": qcards,
+        "flagship": {k: v for k, v in flag.items() if k != "kernel"},
+        "runner": runner}))
+    print(json.dumps(cards_kernels(overlap, flag, runner)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def cards_kernels(overlap, flag, runner):
+    """Phase 19's kernels record: #1, #6 and #7 on the four-card path,
+    their launches in 19c (counts zeroed just before its build and its
+    sweep), each held to its plain version on a card of the mesh."""
+    ks = flag["kernel"]
+
+    def mean(key):
+        return sum(r[key] for r in ks) / len(ks)
+
+    chunk = flag["chunk"]
+    return {"kernels": [{
+        "name": "fused_beam_search",
+        "route": "cuda",
+        "source": KERNEL_SRC,
+        "replaces": KERNEL_REPLACES,
+        # phase 19c's ef sweep: one launch a shard a call
+        "launches": flag["fused_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ks),
+        # means over the 16 shards, each on its card at ef=32 on every query
+        "ms": mean("ms"),
+        "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call runs a beam search
+        "per_shard": [{k: r[k] for k in ("device", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "entry_ms",
+                                         "steps_q", "visited_q")}
+                      for r in ks],
+        "overlap_launches": {m: overlap[f"fused_launches_{m}"]
+                             for m in ("one", "cards")},
+        "runner_launches": runner["fused_launches"],
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": src,
+        "replaces": replaces,
+        # phase 19c's build over the cards
+        "launches": flag[f"{key}_launches"],
+        "max_abs_err": chunk[key]["max_abs_err"],
+        "ms": chunk[key]["ms"],
+        "plain_ms": chunk[key]["plain_ms"],
+        "bound_ms": chunk[key]["bound_ms"],
+        "bound_by": chunk[key].get("bound_by", "bytes"),
+        "library_ms": chunk[key].get("library_ms"),
+        "chunk": {k: v for k, v in chunk[key].items() if k not in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "overlap_launches": [b[f"{key}_launches"]
+                             for b in overlap["builds"]],
+    } for name, src, replaces, key in (
+        ("dma_beam_search", DMA_SRC, DMA_REPLACES, "dma"),
+        ("hamming_block", HAM_SRC, HAM_REPLACES, "ham"))]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000,
@@ -2660,7 +3366,12 @@ def main(argv=None) -> int:
                     help="points a shard of the sharding phase")
     ap.add_argument("--flagship-n", type=int, default=FLAGSHIP_N,
                     help="index points of the 10M phase (above 2^21, so "
-                    "that the mini table serves)")
+                    "that the mini table serves), and of phase 19's 16 "
+                    "shards")
+    ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                    help=f"1: phases 1-18 on one card; {CARDS}: phase 19 "
+                    f"alone on {CARDS} cards (--shard-n points a card in "
+                    "19a, --build-n in 19b, --flagship-n in 19c-d)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2680,16 +3391,10 @@ def main(argv=None) -> int:
     from hnsw_itu_tpu_torch.ops.mini_search import mini_beam_search
     from hnsw_itu_tpu_torch.utils import ResultAttrs, save_index
 
+    if args.cards > 1:
+        return main_cards(args)
     dev = require_cuda(0)
-    t_start = time.perf_counter()
-    seconds, t_last = {}, [t_start]
-
-    def lap(name):
-        now = time.perf_counter()
-        seconds[name] = now - t_last[0]
-        t_last[0] = now
-        log(f"[{name}] phase seconds {seconds[name]:.1f}")
-
+    lap, seconds, t_start = lap_timer()
     smi = phase_card()
     lap("1")
     err_small = phase_small_graphs(dev)

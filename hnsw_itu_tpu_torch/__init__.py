@@ -27,9 +27,10 @@ CLI (``cli.py``); and index and query sharding (``parallel/``).
 
 A sharded index takes a mesh, an ordered list of devices
 (``parallel.make_mesh(devices=[...])``), one per shard; one process
-drives every shard's work. A device may repeat, so S shards can share one
-card (``[torch.device("cuda", 0)] * 4``) and the CPU tests pass
-``["cpu"] * S``; ``make_mesh()`` takes every visible card and raises
+drives every shard's work, and its build forks one worker process a card
+(``parallel.mesh.map_devices``). A device may repeat, so S shards can
+share one card (``[torch.device("cuda", 0)] * 4``) and the CPU tests
+pass ``["cpu"] * S``; ``make_mesh()`` takes every visible card and raises
 without one.
 """
 

@@ -40,7 +40,9 @@ How the port differs from the JAX module, keeping its results:
 
 ``timings``, where a function takes it, is a dict that collects CUDA event
 pairs by phase name ("entry", "search", "select", "apply") when the
-tensors are on a card; ``span_ms`` sums them after a synchronize.
+tensors are on a card, recorded on the current stream of the tensors'
+card (not the caller's current device); ``span_ms`` sums them once every
+pair has completed.
 """
 
 from __future__ import annotations
@@ -66,24 +68,29 @@ MAX_STEPS = 2048  # the JAX search_select's default expansion bound
 
 @contextlib.contextmanager
 def _span(timings, name: str, device: torch.device):
-    """Record a CUDA event pair around the block into ``timings[name]``
-    (no-op without ``timings`` or off the card)."""
+    """Record a CUDA event pair around the block into ``timings[name]``, on
+    the current stream of ``device`` (no-op without ``timings`` or off the
+    card)."""
     if timings is None or device.type != "cuda":
         yield
         return
+    stream = torch.cuda.current_stream(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    start.record(stream)
     try:
         yield
     finally:
-        end.record()
+        end.record(stream)
         timings.setdefault(name, []).append((start, end))
 
 
 def span_ms(timings) -> dict:
-    """Milliseconds per phase of a ``timings`` dict (synchronizes)."""
-    torch.cuda.synchronize()
+    """Milliseconds per phase of a ``timings`` dict: waits for each pair's
+    end event, on whichever card recorded it."""
+    for pairs in timings.values():
+        for _, end in pairs:
+            end.synchronize()
     return {k: sum(s.elapsed_time(e) for s, e in v)
             for k, v in timings.items()}
 

@@ -12,6 +12,9 @@ kernel or header is rebuilt and a stale library is never loaded. Every
 pointer and the stream pass as ``ctypes.c_void_p``; the C entry returns
 ``cudaGetLastError()`` after its launch, and a nonzero code raises here.
 ``build_kernels`` builds every source at once, one nvcc process each.
+``count`` adds to a wrapper's launch counters under a lock, so that
+callers on several threads, and the counts ``parallel.map_devices``
+brings back from its worker processes, lose none.
 """
 
 from __future__ import annotations
@@ -37,12 +40,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FUSED_WORDS = (8, 16, 32, 64)  # sketch widths the kernel is built for
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time, "log": nvcc's output incl. ptxas -v}
 BUILD_INFO: dict[str, dict] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def count(fn, counter: str, n: int = 1) -> None:
+    """Add ``n`` to ``fn.<counter>`` (``kernel_launches`` or
+    ``plain_calls`` of a wrapper) atomically: ``+=`` on an attribute is a
+    read, an add and a write, and two threads between them lose a
+    count."""
+    with _COUNT_LOCK:
+        setattr(fn, counter, getattr(fn, counter) + n)
 
 
 def nvcc_path() -> str:

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _kernels
 from .mini_search import seed_keys
 from .search import beam_search_gather
 
@@ -103,15 +104,13 @@ def dma_beam_search(adj: torch.Tensor, points: torch.Tensor,
     visited int32[B], steps int32[B]); keys ``d << 32 | id`` ascending,
     empty slots ``KEY_INF``."""
     if queries.device.type == "cpu":
-        dma_beam_search.plain_calls += 1
+        _kernels.count(dma_beam_search, "plain_calls")
         return dma_beam_search_plain(adj, points, node_map, queries, init_d,
                                      init_i, ef=ef, max_steps=max_steps)
     if queries.device.type != "cuda":
         raise ValueError(f"no gather beam search for {queries.device}")
     _check_inputs(adj, points, node_map, queries, init_d, init_i, ef,
                   max_steps)
-    from . import _kernels
-
     B = queries.shape[0]
     keys = torch.empty((B, ef), dtype=torch.int64, device=queries.device)
     visited = torch.empty(B, dtype=torch.int32, device=queries.device)
@@ -122,7 +121,7 @@ def dma_beam_search(adj: torch.Tensor, points: torch.Tensor,
             None if node_map is None else node_map.contiguous(), keys,
             visited, steps, ef=ef, max_steps=max_steps,
         )
-        dma_beam_search.kernel_launches += 1
+        _kernels.count(dma_beam_search, "kernel_launches")
     return keys, visited, steps
 
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import _kernels
 from .search import beam_search_packed
 
 MAX_WIDTH = 128  # widest fused row, and the largest beam the kernel holds
@@ -132,14 +133,12 @@ def fused_beam_search(table: FusedTable, queries: torch.Tensor,
     max_d = key_clamp(id_bits, max_d)
     key_inf = (max_d + 1) << id_bits
     if queries.device.type == "cpu":
-        fused_beam_search.plain_calls += 1
+        _kernels.count(fused_beam_search, "plain_calls")
         return beam_search_packed(table.ids, table.data, queries, init_keys,
                                   ef=ef, id_bits=id_bits, max_d=max_d,
                                   max_steps=max_steps)
     if queries.device.type != "cuda":
         raise ValueError(f"no fused beam search for {queries.device}")
-    from . import _kernels
-
     B = queries.shape[0]
     keys = torch.empty((B, ef), dtype=torch.int32, device=queries.device)
     visited = torch.empty(B, dtype=torch.int32, device=queries.device)
@@ -150,7 +149,7 @@ def fused_beam_search(table: FusedTable, queries: torch.Tensor,
         queries, init_keys, table.ids, table.data, keys, visited, steps,
         ef=ef, id_bits=id_bits, key_inf=key_inf, max_steps=max_steps,
     )
-    fused_beam_search.kernel_launches += 1
+    _kernels.count(fused_beam_search, "kernel_launches")
     return keys, visited, steps
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _kernels
 from .metrics import popcount_sum
 
 MAX_WORDS = 64  # widest sketch the kernel stages in shared memory
@@ -68,7 +69,7 @@ def hamming_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``[M, words] x [N, words] -> int32[M, N]`` or ``[P, M, words] x
     [P, N, words] -> int32[P, M, N]``."""
     if a.device.type == "cpu":
-        hamming_block.plain_calls += 1
+        _kernels.count(hamming_block, "plain_calls")
         return hamming_block_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no hamming block for {a.device}")
@@ -84,10 +85,8 @@ def hamming_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                       device=a.device)
     if out.numel() == 0:
         return out
-    from . import _kernels
-
     _kernels.launch_hamming_block(a, b, out)
-    hamming_block.kernel_launches += 1
+    _kernels.count(hamming_block, "kernel_launches")
     return out
 
 

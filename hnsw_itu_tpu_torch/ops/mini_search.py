@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _kernels
 from .fused_search import fused_width
 from .metrics import popcount_sum
 from .search import beam_search_two_plane
@@ -189,7 +190,7 @@ def mini_beam_search(table: torch.Tensor, queries: torch.Tensor,
     (DINF, IINF). Ids are real ids either way. Rerank the ids with full
     sketches (``rerank_exact``) for final results."""
     if queries.device.type == "cpu":
-        mini_beam_search.plain_calls += 1
+        _kernels.count(mini_beam_search, "plain_calls")
         return mini_beam_search_plain(table, queries, init_d, init_i, ef=ef,
                                       mini_words=mini_words,
                                       max_steps=max_steps, tie_bits=tie_bits)
@@ -197,8 +198,6 @@ def mini_beam_search(table: torch.Tensor, queries: torch.Tensor,
         raise ValueError(f"no mini beam search for {queries.device}")
     _check_inputs(table, queries, init_d, init_i, ef, mini_words, max_steps,
                   tie_bits)
-    from . import _kernels
-
     B = queries.shape[0]
     keys = torch.empty((B, ef), dtype=torch.int64, device=queries.device)
     visited = torch.empty(B, dtype=torch.int32, device=queries.device)
@@ -209,7 +208,7 @@ def mini_beam_search(table: torch.Tensor, queries: torch.Tensor,
             keys, visited, steps, ef=ef, tie_bits=tie_bits,
             max_steps=max_steps,
         )
-        mini_beam_search.kernel_launches += 1
+        _kernels.count(mini_beam_search, "kernel_launches")
     return (*split_keys(keys, tie_bits), visited, steps)
 
 

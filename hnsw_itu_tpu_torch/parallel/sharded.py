@@ -17,11 +17,17 @@ Two strategies, as in the JAX package:
 How the port differs from the JAX module, keeping its results:
 
 * A mesh is a list of devices (``parallel/mesh.py``); one process drives
-  every shard's work in a loop, and the JAX ``all_gather`` is a copy of
-  each shard's [B, k] top-k to the mesh's first device before the merge.
-  The loops read nothing back from a device per shard, so work on
-  different cards overlaps; the functions they call may (the build's
-  prune reads its row count back: ``_build._prune_order``).
+  every shard's work, and the JAX ``all_gather`` is a copy of each
+  shard's [B, k] top-k to the mesh's first device before the merge. The
+  query loops read nothing back from a card, so the cards of a mesh run
+  their shards at once. ``ShardedNSW.build`` runs through
+  ``map_devices``: a mesh that names one device builds in this process,
+  chunk by chunk over the shards in order; a mesh of several cards builds
+  in one worker process a card, each running its shards the same way, at
+  once (the build's host syncs and Python would otherwise take the cards
+  in turn). A shard's chunk never reads another shard's state, so the
+  graphs do not depend on how many cards the mesh has.
+  ``sharded_build_step`` and ``knns_query_sharded`` loop in the caller.
 * Per-shard counts that the JAX package keeps on the devices (``eps``,
   ``offsets``, ``ns``) are host integers here: they are known when the
   index is built, and the sampled entry takes its population as an int.
@@ -41,6 +47,8 @@ How the port differs from the JAX module, keeping its results:
 
 from __future__ import annotations
 
+import functools
+import time
 import warnings
 
 import numpy as np
@@ -55,7 +63,7 @@ from ..ops.entry import sampled_entry
 from ..ops.fused_search import MAX_EF, materialize_fused
 from ..ops.metrics import as_points, get_metric
 from ..ops.search import _sort2, batched_beam_search
-from .mesh import Mesh, make_mesh, replicate, shard_leading
+from .mesh import Mesh, make_mesh, map_devices, replicate, shard_leading
 
 
 def _metric(metric):
@@ -72,12 +80,14 @@ def _check_on(device: torch.device, *tensors) -> None:
 
 
 def _insert_rows(points, adj, deg, spill, ep: int, n: int, chunk, rows, *,
-                 efc: int, m: int, metric, expand: int, prune_budget: int):
+                 efc: int, m: int, metric, expand: int, prune_budget: int,
+                 timings=None):
     """One shard's chunk over already-written points: the rows ``rows``
     (host ints, ascending) of ``chunk`` take ids ``n + rows``, are searched
     from ``ep`` and linked in; ``adj``, ``deg`` and ``spill`` change in
-    place. Returns (row count after the chunk, reverse edges dropped as an
-    int32 scalar tensor)."""
+    place (``timings``: CUDA event pairs by phase, ``models/_build.py``).
+    Returns (row count after the chunk, reverse edges dropped as an int32
+    scalar tensor)."""
     dev = adj.device
     if len(rows) == 0:
         return n, torch.zeros((), dtype=torch.int32, device=dev)
@@ -85,10 +95,11 @@ def _insert_rows(points, adj, deg, spill, ep: int, n: int, chunk, rows, *,
     qs, new_ids = chunk[r], (r + n).to(torch.int32)
     eps = torch.full((len(rows),), ep, dtype=torch.int32, device=dev)
     sel, _ = _build.search_select(points, None, adj, qs, eps, efc=efc, m=m,
-                                  expand=expand, metric=metric)
+                                  expand=expand, timings=timings,
+                                  metric=metric)
     _, _, dropped = _build.apply_inserts(
         points, None, GraphArrays(adj, deg), new_ids, sel, spill,
-        prune_budget=prune_budget, metric=metric)
+        prune_budget=prune_budget, timings=timings, metric=metric)
     return n + len(rows), dropped
 
 
@@ -124,6 +135,43 @@ def sharded_build_step(points_s, adj_s, deg_s, spill_s, ep_s, n_s, chunk_s,
             metric=metric, expand=expand, prune_budget=prune_budget)
         drops.append(dr)
     return points_s, adj_s, deg_s, spill_s, n_out, drops
+
+
+def _build_group(device, shards, parts, *, opts: IndexOptions, metric,
+                 timed: bool = False):
+    """Build the subgraphs of ``shards`` on ``device`` in place: ``parts``
+    holds each shard's (points, adj, deg, spill) on ``device``, the points
+    written and the rest empty, and its row count. Each progressive chunk
+    (at most ``opts.batch_size`` rows) runs over the shards in order; each
+    shard's row 0 is its entry point. Returns (each shard's reverse edges
+    dropped, spill entries left counted in, as ints; with ``timed``
+    {phase: CUDA-event ms on ``device``, "wall": host ms}, else None)."""
+    t0 = time.perf_counter()
+    metric = _metric(metric)
+    timings = {} if timed else None
+    cap_s = parts[0][0].shape[0]
+    n_s = [min(n, 1) for *_, n in parts]
+    drops = [torch.zeros((), dtype=torch.int32, device=device)
+             for _ in parts]
+    pos = 1
+    for c in _build.chunk_schedule(1, max(0, cap_s - 1),
+                                   max_chunk=opts.batch_size):
+        for j, (points, adj, deg, spill, n) in enumerate(parts):
+            rows = np.arange(min(c, max(0, n - pos)))
+            n_s[j], dr = _insert_rows(
+                points, adj, deg, spill, 0, n_s[j], points[pos : pos + c],
+                rows, efc=opts.ef_construction, m=opts.connections,
+                metric=metric, expand=opts.expand,
+                prune_budget=opts.prune_budget, timings=timings)
+            drops[j] = drops[j] + dr  # stays on the device
+        pos += c
+    drops = [int(d + (p[3][:-1] >= 0).sum(dtype=torch.int32))
+             for d, p in zip(drops, parts)]
+    if not timed:
+        return drops, None
+    spans = _build.span_ms(timings)
+    spans["wall"] = (time.perf_counter() - t0) * 1e3
+    return drops, spans
 
 
 def _merge(parts, k: int, device: torch.device):
@@ -185,13 +233,19 @@ class ShardedNSW:
 
     @classmethod
     def build(cls, points, opts: IndexOptions, metric="hamming",
-              mesh: Mesh | None = None):
-        """Split contiguously into S shards (``cap_s = ceil(n / S)``) and
-        build every subgraph: each progressive chunk (at most
-        ``opts.batch_size`` rows) is one ``sharded_build_step`` over the
-        points uploaded once. Each shard's row 0 is its entry point.
-        Spill entries left at the end count as drops of their shard.
-        Without ``mesh``, every visible card (``make_mesh()``)."""
+              mesh: Mesh | None = None, timings: dict | None = None):
+        """Split contiguously into S shards (``cap_s = ceil(n / S)``),
+        allocate every shard's tensors on its device, and build every
+        subgraph in place (``_build_group``: progressive chunks of at most
+        ``opts.batch_size`` rows, each over the shards in order, the
+        counterpart of one ``sharded_build_step``) through ``map_devices``:
+        in this process for a mesh of one device, else in one worker
+        process per card, the cards at once, writing the shared tensors.
+        Each shard's row 0 is its entry point. Spill entries left at the
+        end count as drops of their shard. Without ``mesh``, every visible
+        card (``make_mesh()``). ``timings``, a dict, gets for each device
+        of the mesh its build's CUDA-event milliseconds by phase and its
+        host milliseconds ("wall")."""
         mesh = mesh or make_mesh()
         metric = _metric(metric)
         S = mesh.size
@@ -201,36 +255,28 @@ class ShardedNSW:
         ns = np.array([min(cap_s, max(0, n - s * cap_s)) for s in range(S)],
                       np.int32)
         offs = np.arange(S, dtype=np.int32) * cap_s
-        points_s, adj_s, deg_s, spill_s = [], [], [], []
+        state = []
         for s, dev in enumerate(mesh.devices):
             shard = np.zeros((cap_s, *pts.shape[1:]), pts.dtype)
             shard[: ns[s]] = pts[offs[s] : offs[s] + ns[s]]
-            points_s.append(torch.from_numpy(shard).to(dev))
-            adj_s.append(torch.full((cap_s, opts.max_connections), -1,
-                                    dtype=torch.int32, device=dev))
-            deg_s.append(torch.zeros(cap_s, dtype=torch.int32, device=dev))
-            spill_s.append(_build.make_spill(cap_s, device=dev))
-        n_s = np.minimum(ns, 1)
-        drops_s = [torch.zeros((), dtype=torch.int32, device=d)
-                   for d in mesh.devices]
-        pos = 1
-        for c in _build.chunk_schedule(1, max(0, cap_s - 1),
-                                       max_chunk=opts.batch_size):
-            for s in range(S):
-                rows = np.arange(min(c, max(0, ns[s] - pos)))
-                n_s[s], dr = _insert_rows(
-                    points_s[s], adj_s[s], deg_s[s], spill_s[s], 0,
-                    int(n_s[s]), points_s[s][pos : pos + c], rows,
-                    efc=opts.ef_construction, m=opts.connections,
-                    metric=metric, expand=opts.expand,
-                    prune_budget=opts.prune_budget)
-                drops_s[s] = drops_s[s] + dr  # stays on the device
-            pos += c
-        idx = cls(mesh, points_s, (adj_s, deg_s), np.zeros(S, np.int32),
-                  offs, ns, metric, opts)
-        idx.edge_drops_s = [
-            d + (sp[:-1] >= 0).sum(dtype=torch.int32)
-            for d, sp in zip(drops_s, spill_s)]
+            state.append((torch.from_numpy(shard).to(dev),
+                          torch.full((cap_s, opts.max_connections), -1,
+                                     dtype=torch.int32, device=dev),
+                          torch.zeros(cap_s, dtype=torch.int32, device=dev),
+                          _build.make_spill(cap_s, device=dev), int(ns[s])))
+        work = functools.partial(_build_group, opts=opts, metric=metric,
+                                 timed=timings is not None)
+        drops = [0] * S
+        for shards, (group, spans) in map_devices(mesh, work, state):
+            if timings is not None:
+                timings[mesh.devices[shards[0]]] = spans
+            for s, d in zip(shards, group):
+                drops[s] = d
+        idx = cls(mesh, [t[0] for t in state],
+                  ([t[1] for t in state], [t[2] for t in state]),
+                  np.zeros(S, np.int32), offs, ns, metric, opts)
+        idx.edge_drops_s = [torch.tensor(d, dtype=torch.int32, device=dev)
+                            for d, dev in zip(drops, mesh.devices)]
         return idx
 
     def size(self) -> int:

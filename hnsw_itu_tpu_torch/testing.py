@@ -3,10 +3,13 @@ checks: ``tests/test_torch_kernels.py`` and ``chip_smoke.py`` phase 2 both
 draw their small cases from here, so the two lists cannot drift apart.
 
 Every case is made from a seed with ``numpy.random.default_rng``; nothing
-here touches a device.
+here touches a device. ``probe_group`` is a ``parallel.map_devices`` work
+function for the tests: a worker process imports it by name.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -153,3 +156,24 @@ def fused_edge_inputs(kind, cap, w, id_bits, B=32, words=32):
                                   dtype=np.uint32)
     qs = rng.integers(0, 2**32, size=(B, words), dtype=np.uint32)
     return pts, ids, data, qs, rng.choice(live, size=B).astype(np.int32)
+
+
+def probe_group(device, shards, args):
+    """For each shard in the order given: (process id, shard, its arg,
+    device as text), after one plain Hamming block on the CPU (a launch
+    count the caller should see); raises ValueError at an arg "fail" and
+    ends its process at "exit"."""
+    import torch
+
+    from .ops.hamming import hamming_block
+
+    out = []
+    for s, a in zip(shards, args):
+        if a == "fail":
+            raise ValueError(f"shard {s} failed")
+        if a == "exit":
+            os._exit(3)
+        hamming_block(torch.zeros((2, 1), dtype=torch.int32),
+                      torch.zeros((2, 1), dtype=torch.int32))
+        out.append((os.getpid(), s, a, str(device)))
+    return out
