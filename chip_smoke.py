@@ -162,18 +162,22 @@ cards. Phases, each printed as it ends:
      every query; then, the policy's table freed, the table of the JAX
      package's default budget (1.1e10 bytes: W=32, mini_words=7) at the
      JAX record's point, held the same way.
- 19. (``--cards 4`` only) the sharded paths on four cards (the builds in
-     one worker process a card, ``parallel/mesh.py`` ``map_devices``; the
-     queries from this process's loop): (a) ShardedHNSW.build
+ 19. (``--cards 4`` only) the sharded paths on four cards, each card's
+     work in its long-lived worker process (``parallel/mesh.py``
+     ``CardPool``): (a) ShardedHNSW.build
      of 4 x shard_n points at phase 17's options on a mesh naming card 0
      four times and on the four cards, in the order one, four, four, one,
      each build equal shard by shard to the first, the host seconds, their
      ratio and the CUDA-event build spans per card; then knns at k=10,
      ef=32 on both meshes' fused tables, ids and dists equal, both timed;
-     (b) knns_query_sharded over phase 9's build_n-point device-built
-     index on the four cards, with the sampled entry and the greedy
-     descent, equal on every query to the same call on card 0 four times
-     and to the index's general route, all three timed; (c) the JAX
+     the four-card knns (on the workers) equal on every query to this
+     process's loop over the same shards, both timed, with the pool's
+     timings, each card's device ms and the busy share; (b)
+     knns_query_sharded over phase 9's build_n-point device-built index on
+     the four cards (one pool kept across the calls), with the sampled
+     entry and the greedy descent, equal on every query to the same call
+     on card 0 four times and to the index's general route, all three
+     timed; (c) the JAX
      sharded runner's configuration (benches/run_sharded_10m.py):
      make_dataset(0, flagship_n, nq) in 16 shards of 632,512 as one
      ShardedHNSW over the four cards (four contiguous shards and 21.4 GB
@@ -182,14 +186,19 @@ cards. Phases, each printed as it ends:
      oracle, knns at ef 32 to 128 against the 0.93 gate with #1 launched
      once a shard a call, every shard's #1 against its plain version at
      ef=32 on every query on its card, the per-card entry and #1 times,
-     the merge against numpy; (d) the runner's own recipe on the same
+     every ef's knns on the workers against this process's loop (every
+     query; timed at ef=32, as in (a)), the merge against numpy, the
+     memory the cards keep once the index is closed; (d) the runner's own
+     recipe on the same
      data: 16 HNSWBuilder indexes (efc=96, m=24, M=64, batch_size 256, a
      20k native warmup), one worker process a card building and serving
      its four shards, the four cards at once, each shard served
      on its fused table (query batch 8192, 1024-point sampled entry,
      max_steps = ef) at ef 48 and 32, best of 2, ids shifted by the shard
      offset and merged by (distance, id): recall@10 beside the runner's
-     record, build seconds per shard, per card and wall.
+     record, build seconds per shard and per card, and the wall
+     attributed to the uploads, the pool's start, each card's work, the
+     pool's close and the merge.
 
 Every phase's seconds are logged (``phase seconds``).
 
@@ -2729,13 +2738,95 @@ def same_shards(a, b) -> bool:
                     for x, y in zip(a.adj_s + a.deg_s, b.adj_s + b.deg_s)))
 
 
+def caller_knns(idx, q, k, ef):
+    """``idx.knns`` as a mesh of one device runs it: every shard's
+    ``_shard_topk`` issued from this process in turn, then the merge (the
+    loop the workers replace on a mesh of several cards)."""
+    from hnsw_itu_tpu_torch.models.base import KnnResult
+    from hnsw_itu_tpu_torch.parallel import replicate
+    from hnsw_itu_tpu_torch.parallel.sharded import _merge
+
+    route = idx.route(k, ef)
+    qs = replicate(idx.mesh, q)
+    return KnnResult(*_merge([idx._shard_topk(s, qs[s], k, ef, route)
+                              for s in range(idx.mesh.size)], k,
+                             idx.mesh.devices[0]))
+
+
+def pool_ms_text(ms) -> str:
+    """A ``CardPool.last_ms`` record as text: the call's host ms, and of
+    them the caller's pickling and card syncs and each worker's unpickling,
+    job and clean-up."""
+    w = ms["workers"]
+    return (f"the pool's call {ms['call']:.2f} ms: pickling {ms['dump']:.2f}, "
+            f"the caller's card syncs {ms['sync']:.2f}; each worker's "
+            "unpickling " + ", ".join(f"{x['load']:.2f}" for x in w)
+            + ", job " + ", ".join(f"{x['job']:.2f}" for x in w)
+            + ", clean-up " + ", ".join(f"{x['clean']:.2f}" for x in w)
+            + " ms")
+
+
+def card_shard_ms(idx, q, k, ef, reps=10):
+    """Each card's device milliseconds for its shards' part of ``knns``
+    (entry and search, ``_shard_topk``), by CUDA events on the card over
+    ``reps`` back-to-back calls from this process, summed over the card's
+    shards: {device: ms}."""
+    import torch
+
+    from hnsw_itu_tpu_torch.parallel import replicate
+
+    route = idx.route(k, ef)
+    qs = replicate(idx.mesh, q)
+    out = {}
+    for s, dev in enumerate(idx.mesh.devices):
+        with torch.cuda.device(dev):
+            ms = cuda_ms(lambda s=s: idx._shard_topk(s, qs[s], k, ef, route),
+                         reps)
+        out[str(dev)] = out.get(str(dev), 0.0) + ms
+    return out
+
+
+def workers_vs_caller(idx, q, k, ef, tag, smi):
+    """``idx.knns`` (each card's shards in its worker) against
+    ``caller_knns`` on the same mesh: ids and dists equal on every query
+    (raises otherwise); both best of 3 (host clock, every card
+    synchronized); the pool's timings of the last call on the workers;
+    each card's device ms; the busy share, the busiest card's device ms
+    over the workers' call. Returns the record."""
+    import torch
+
+    best_w, got = best_of_3(lambda: idx.knns(q, k, ef))
+    last = idx._pool.last_ms
+    best_c, want = best_of_3(lambda: caller_knns(idx, q, k, ef))
+    dev_ms = card_shard_ms(idx, q, k, ef)
+    r = {"ef": ef, "workers_ms": best_w * 1e3, "caller_ms": best_c * 1e3,
+         "pool_ms": last, "card_device_ms": dev_ms,
+         "busy_share": max(dev_ms.values()) / (best_w * 1e3),
+         "pids": idx._pool.pids,
+         "equal": torch.equal(got.ids, want.ids)
+         and torch.equal(got.dists, want.dists)}
+    log(f"[{tag}] on {smi}: knns k={k} ef={ef} on the workers "
+        f"{r['workers_ms']:.2f} ms, the caller's loop on the same mesh "
+        f"{r['caller_ms']:.2f} ms (best of 3 each); in the last call "
+        + pool_ms_text(last) + "; each card's device "
+        + ", ".join(f"{d} {m:.3f}" for d, m in dev_ms.items())
+        + f" ms; busy share {r['busy_share']:.2f}; ids and dists "
+        f"{'equal' if r['equal'] else 'DIFFERENT'} on all {q.shape[0]} "
+        "queries")
+    if not r["equal"]:
+        raise AssertionError(f"[{tag}] knns on the workers != the caller's "
+                             f"loop at ef={ef}")
+    return r
+
+
 def phase_overlap(shard_n, nq, cards, smi):
     """Phase 19a: ShardedHNSW.build of ``cards`` x ``shard_n`` points at
     SHARD_OPTS on a mesh naming card 0 ``cards`` times and on a mesh of
     ``cards`` cards, in the order one, four, four, one; every build equal
     shard by shard to the first; host seconds and the CUDA-event build
     spans per card; then enable_inline and knns at k=10, ef=32 on both
-    meshes: ids and dists equal, both timed."""
+    meshes: ids and dists equal, both timed; the four-card index's knns
+    (on its workers) against the caller's loop (``workers_vs_caller``)."""
     import torch
 
     from hnsw_itu_tpu_torch.models import IndexOptions
@@ -2839,6 +2930,9 @@ def phase_overlap(shard_n, nq, cards, smi):
             raise AssertionError(f"[19a] knns on mesh {name}: route "
                                  f"{idx.last_route}, launches "
                                  f"{fused_beam_search.kernel_launches}")
+    if kept["cards"]._pool.in_caller:
+        raise AssertionError("[19a] the four-card index has no workers")
+    rec["workers"] = workers_vs_caller(kept["cards"], q, K, EF, "19a", smi)
     rec["knns_equal"] = (torch.equal(res["one"].ids, res["cards"].ids)
                          and torch.equal(res["one"].dists,
                                          res["cards"].dists))
@@ -2849,6 +2943,8 @@ def phase_overlap(shard_n, nq, cards, smi):
         "queries")
     if not rec["knns_equal"]:
         raise AssertionError("[19a] knns differs between the meshes")
+    for x in kept.values():
+        x.close()
     del kept, res, idx
     gc.collect()
     torch.cuda.empty_cache()
@@ -2857,15 +2953,20 @@ def phase_overlap(shard_n, nq, cards, smi):
 
 def phase_query_cards(build_n, nq, cards, smi):
     """Phase 19b: knns_query_sharded at k=10, ef=32 over phase 9's
-    ``build_n``-point device-built index on ``cards`` cards, with the
-    sampled entry and then the greedy descent: ids and dists equal to the
-    same call on a mesh naming card 0 ``cards`` times, and to the index's
-    own general route, on every query; all three timed."""
+    ``build_n``-point device-built index on ``cards`` cards (each card's
+    part in its worker of one ``CardPool``, kept across the calls), with
+    the sampled entry and then the greedy descent: ids and dists equal to
+    the same call on a mesh naming card 0 ``cards`` times (in this
+    process), and to the index's own general route, on every query; all
+    three timed, with the pool's timings; then the copies of the index to
+    the other cards alone."""
     import torch
 
     from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
-    from hnsw_itu_tpu_torch.parallel import knns_query_sharded, make_mesh
+    from hnsw_itu_tpu_torch.parallel import (knns_query_sharded, make_mesh,
+                                             replicate)
+    from hnsw_itu_tpu_torch.parallel.mesh import CardPool
 
     dev = torch.device("cuda", 0)
     _, qs, index, build = phase_device_build(build_n, nq, dev, tag="19b")
@@ -2874,6 +2975,10 @@ def phase_query_cards(build_n, nq, cards, smi):
               "one": make_mesh(devices=[dev] * cards)}
     rec = {"n": build_n, "build": {k: build[k] for k in (
         "host_s", "device_s", "level_ns", "edge_drops")}}
+    t0 = time.perf_counter()
+    pool = CardPool(meshes["cards"])
+    rec["pool_start_s"] = time.perf_counter() - t0
+    pools = {"cards": pool, "one": None}
     for entry in (SAMPLE, 0):
         index.query_entry_sample = entry
         name = "sampled" if entry else "descent"
@@ -2881,12 +2986,13 @@ def phase_query_cards(build_n, nq, cards, smi):
         for m, mesh in meshes.items():
             dma_beam_search.kernel_launches = dma_beam_search.plain_calls = 0
             r[f"{m}_ms"], got[m] = timed(
-                lambda mesh=mesh: knns_query_sharded(index, q, K, EF,
-                                                     mesh=mesh))
+                lambda mesh=mesh, p=pools[m]: knns_query_sharded(
+                    index, q, K, EF, mesh=mesh, pool=p))
             r[f"{m}_dma_launches"] = dma_beam_search.kernel_launches
             if dma_beam_search.plain_calls or (
                     entry == 0 and dma_beam_search.kernel_launches <= 0):
                 raise AssertionError(f"[19b] {name} descent on #6: {r}")
+        r["pool_ms"] = pool.last_ms
         r["general_ms"], want = timed(lambda: index.knns(q, K, EF))
         route = index.last_route
         r["equal"] = all(torch.equal(g.ids, want.ids)
@@ -2899,9 +3005,24 @@ def phase_query_cards(build_n, nq, cards, smi):
             f"general route ({route}) {r['general_ms']:.1f} ms; ids and "
             f"dists {'equal' if r['equal'] else 'DIFFERENT'} on all "
             f"{len(qs)} queries; #6 launches {r['cards_dma_launches']} / "
-            f"{r['one_dma_launches']}")
+            f"{r['one_dma_launches']}; in the last four-card call "
+            + pool_ms_text(r["pool_ms"]))
         if not r["equal"] or route != "general":
             raise AssertionError(f"[19b] query sharding, {name}: {r}")
+    rec["pids"] = pool.pids
+    pool.close()
+    # the per-call copies of the index to the other cards, alone
+    tensors = [index.points, index._base().adj] + [
+        t for lv in index.levels
+        for t in (lv.node_ids, lv.down, lv.graph.adj, lv.graph.deg)]
+    rec["replicate_ms"], _ = timed(
+        lambda: [replicate(meshes["cards"], t) for t in tensors])
+    gb = sum(t.numel() * t.element_size() for t in tensors) / 1e9
+    log(f"[19b] on {smi}: the copies of the index to the {cards - 1} other "
+        f"cards ({gb:.3f} GB a card) take {rec['replicate_ms']:.1f} ms of "
+        "each four-card call (host clock, synchronized)")
+    log(f"[19b] the pool of {cards} workers started in "
+        f"{rec['pool_start_s']:.2f} s and served every four-card call")
     del index, q, got, want
     gc.collect()
     torch.cuda.empty_cache()
@@ -2912,8 +3033,9 @@ def phase_flagship_cards(n, nq, cards, smi):
     """Phase 19c: the JAX sharded runner's 16 x 632,512 points (n split in
     RUNNER_SHARDS) as one ShardedHNSW over ``cards`` cards, four
     contiguous shards a card; the build at SHARD_OPTS, the oracle,
-    enable_inline, the ef sweep against the 0.93 gate, every shard's #1
-    against its plain version at ef=32 on every query, the merge against
+    enable_inline, the ef sweep (each card's shards on its worker) against
+    the 0.93 gate, every shard's #1 against its plain version at ef=32 on
+    every query, the sweep against the caller's loop, the merge against
     numpy. Returns (record, (pts, qs, gt_i)) for 19d."""
     from types import SimpleNamespace
 
@@ -3019,6 +3141,19 @@ def phase_flagship_cards(n, nq, cards, smi):
         raise AssertionError(f"[19c] fused launches: {rec}")
     if max(v["recall"] for v in sweep.values()) < RECALL_GATE:
         raise AssertionError(f"[19c] no ef reaches recall@10 {RECALL_GATE}")
+    # the workers against the caller's loop on the same mesh: every query
+    # at every ef, both timed at ef=32
+    if idx._pool.in_caller:
+        raise AssertionError("[19c] the four-card index has no workers")
+    for ef in FLAGSHIP_CARD_EFS:
+        want = caller_knns(idx, q, K, ef)
+        if not (torch.equal(results[ef].ids, want.ids)
+                and torch.equal(results[ef].dists, want.dists)):
+            raise AssertionError(f"[19c] knns on the workers != the "
+                                 f"caller's loop at ef={ef}")
+    log(f"[19c] knns on the workers equals the caller's loop on all {nq} "
+        f"queries at ef {list(FLAGSHIP_CARD_EFS)}")
+    rec["workers"] = workers_vs_caller(idx, q, K, EF, "19c", smi)
 
     # every shard's #1 against its plain version at ef=32, on its card
     steps = idx._steps_cap(EF)
@@ -3064,8 +3199,10 @@ def phase_flagship_cards(n, nq, cards, smi):
         "the copies across cards included)")
     if not rec["merge_equal"]:
         raise AssertionError("[19c] the sharded merge != the numpy merge")
-    del idx, parts, results, res, view, chunk
+    idx.close()  # the workers release the shared shards and tables
+    del idx, parts, results, res, view, chunk, want
     gc.collect()
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     # the shards' tensors, shared with the build's workers, are free again
     rec["reserved_after_gb"] = [torch.cuda.memory_reserved(d) / 1e9
@@ -3079,7 +3216,7 @@ def phase_flagship_cards(n, nq, cards, smi):
 def runner_group(device, shards, parts, *, opts, efs, q, k, query_batch,
                  sample):
     """One card's part of the JAX sharded runner's loop
-    (benches/run_sharded_10m.py:136-170), run by ``map_devices``: each of
+    (benches/run_sharded_10m.py:136-170), run by ``CardPool.map``: each of
     its shards (``parts``: its points, a tensor on ``device``) built as
     its own HNSWBuilder index at ``opts`` on ``device``, served at the
     runner's settings (``query_batch``, ``sample``, enable_inline) and
@@ -3133,22 +3270,25 @@ def runner_group(device, shards, parts, *, opts, efs, q, k, query_batch,
 
 
 def runner(pts, shards, mesh, q, *, opts=None, efs=None,
-           query_batch=RUNNER_QUERY_BATCH, sample=SAMPLE, k=K):
+           query_batch=RUNNER_QUERY_BATCH, sample=SAMPLE, k=K, times=None):
     """The JAX sharded runner's recipe over ``mesh`` (one entry a shard):
     ``pts`` split into ``shards`` equal contiguous shards, each uploaded
     to its device, ``runner_group`` on every card at once
-    (``map_devices``: one worker process a card, sharing the shards'
-    tensors, each building and querying its shards in order), then per ef
+    (a ``CardPool`` for the call: one worker process a card, sharing the
+    shards' tensors, each building and querying its shards in order),
+    then per ef
     the ids shifted by the shard offset and the exact (distance, id)
     merge of the shards' top-k (run_sharded_10m.py:160-203). Returns (per
     ef (dists, ids) int64 [nq, k], one record a shard with its work's
-    wall-clock times made relative to the call)."""
+    wall-clock times made relative to the call). ``times``, a dict, gets
+    the call's own seconds: the uploads, the pool's start, the map, the
+    pool's close and the merge."""
     import functools
 
     import numpy as np
 
     from hnsw_itu_tpu_torch.ops.metrics import as_points
-    from hnsw_itu_tpu_torch.parallel.mesh import map_devices
+    from hnsw_itu_tpu_torch.parallel.mesh import CardPool
 
     per = len(pts) // shards
     efs = RUNNER_EFS if efs is None else efs
@@ -3156,15 +3296,26 @@ def runner(pts, shards, mesh, q, *, opts=None, efs=None,
         runner_group, opts=RUNNER_OPTS if opts is None else opts, efs=efs,
         q=np.asarray(q), k=k, query_batch=query_batch, sample=sample)
     recs = [None] * shards
+    times = {} if times is None else times
+    t_call = time.time()
     parts = [as_points(pts[s * per : (s + 1) * per], mesh.devices[s])
              for s in range(shards)]
-    t_call = time.time()
-    for group, out in map_devices(mesh, work, parts):
-        for s, r in zip(group, out):
+    times["upload_s"] = time.time() - t_call
+    t0 = time.time()
+    with CardPool(mesh) as pool:
+        times["pool_start_s"] = time.time() - t0
+        t0 = time.time()
+        out = pool.map(work, parts)
+        times["map_s"] = time.time() - t0
+        t0 = time.time()
+    times["pool_close_s"] = time.time() - t0
+    for group, res in out:
+        for s, r in zip(group, res):
             r["began"] -= t_call
             r["ended"] -= t_call
             recs[s] = r
     del parts
+    t0 = time.time()
     imax = np.iinfo(np.int32).max
     merged = {}
     for ef in efs:
@@ -3178,6 +3329,7 @@ def runner(pts, shards, mesh, q, *, opts=None, efs=None,
         o = np.lexsort((all_i, all_d), axis=1)[:, :k]
         merged[ef] = (np.take_along_axis(all_d, o, axis=1),
                       np.take_along_axis(all_i, o, axis=1))
+    times["merge_s"] = time.time() - t0
     return merged, recs
 
 
@@ -3186,7 +3338,9 @@ def phase_runner(pts, qs, gt_i, cards, smi):
     HNSWBuilder shards, one worker process a card, each card building and
     serving its four shards in order, all four cards at once; each shard on
     its fused table at ef 48 and 32 (max_steps = ef), best of 2 warm
-    calls; merged; recall@10 beside the runner's record."""
+    calls; merged; recall@10 beside the runner's record. The call's wall
+    is attributed: uploads, the pool's start, each card's start, build
+    and end in the map, the pool's close, the merge."""
     import torch
 
     from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
@@ -3195,31 +3349,42 @@ def phase_runner(pts, qs, gt_i, cards, smi):
     S = RUNNER_SHARDS
     mesh = card_mesh(cards, S)
     fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    times = {}
     t0 = time.perf_counter()
-    merged, recs = runner(pts, S, mesh, qs)
+    merged, recs = runner(pts, S, mesh, qs, times=times)
     wall = time.perf_counter() - t0
     per_card = {}
     for s, d in enumerate(mesh.devices):
         c = per_card.setdefault(str(d), {
-            "build_s": 0.0, "began_s": recs[s]["began"], **{
-                f"knns_ms_ef{ef}": 0.0 for ef in RUNNER_EFS}})
+            "build_s": 0.0, "shards_s": 0.0, "began_s": recs[s]["began"],
+            **{f"knns_ms_ef{ef}": 0.0 for ef in RUNNER_EFS}})
         c["build_s"] += recs[s]["build_s"]
+        c["shards_s"] += recs[s]["ended"] - recs[s]["began"]
         c["ended_s"] = recs[s]["ended"]
         for ef in RUNNER_EFS:
             c[f"knns_ms_ef{ef}"] += recs[s]["points"][ef][2]
     routes = {r["route"] for r in recs}
     rec = {"n": len(pts), "shards": S, "opts": RUNNER_OPTS, "wall_s": wall,
-           "build_s": [r["build_s"] for r in recs], "per_card": per_card,
-           "level_ns": [r["level_ns"] for r in recs],
+           "call_s": times, "build_s": [r["build_s"] for r in recs],
+           "per_card": per_card, "level_ns": [r["level_ns"] for r in recs],
            "fused_launches": fused_beam_search.kernel_launches,
            "fused_plain": fused_beam_search.plain_calls, "points": {}}
     log(f"[19d] {S} HNSWBuilder shards of {len(pts) // S} points "
         f"({RUNNER_OPTS}), one worker process a card on {cards} cards: "
         f"{wall:.1f} s wall for the builds and queries; per shard build "
-        + ", ".join(f"{r['build_s']:.1f}" for r in recs) + " s; per card "
-        + "; ".join(f"{d} build {v['build_s']:.1f} s, its work from "
-                    f"{v['began_s']:.1f} to {v['ended_s']:.1f} s after the "
-                    "call" for d, v in per_card.items()))
+        + ", ".join(f"{r['build_s']:.1f}" for r in recs) + " s")
+    begun = times["upload_s"] + times["pool_start_s"]
+    log(f"[19d] the wall attributed (host clock, s after the call): "
+        f"uploads {times['upload_s']:.2f}, the pool's start "
+        f"{times['pool_start_s']:.2f}, the map {times['map_s']:.2f} (from "
+        f"{begun:.2f} to "
+        f"{begun + times['map_s']:.2f}), the pool's close "
+        f"{times['pool_close_s']:.2f}, the merge {times['merge_s']:.2f}; "
+        "per card: "
+        + "; ".join(f"{d} began {v['began_s']:.2f}, ended "
+                    f"{v['ended_s']:.2f}, build {v['build_s']:.1f}, its "
+                    f"{S // cards} shards' spans {v['shards_s']:.1f}"
+                    for d, v in per_card.items()))
     for ef in RUNNER_EFS:
         r10 = recall_at_k(merged[ef][1], gt_i, K)
         ms = [r["points"][ef][2] for r in recs]

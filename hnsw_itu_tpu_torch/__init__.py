@@ -26,9 +26,10 @@ reorder; ``.npz`` persistence of all three index kinds; the six-command
 CLI (``cli.py``); and index and query sharding (``parallel/``).
 
 A sharded index takes a mesh, an ordered list of devices
-(``parallel.make_mesh(devices=[...])``), one per shard; one process
-drives every shard's work, and its build forks one worker process a card
-(``parallel.mesh.map_devices``). A device may repeat, so S shards can
+(``parallel.make_mesh(devices=[...])``), one per shard; on a mesh of
+several cards its build and its queries run in one long-lived worker
+process a card (``parallel.mesh.CardPool``), on a mesh of one device in
+the caller's process. A device may repeat, so S shards can
 share one card (``[torch.device("cuda", 0)] * 4``) and the CPU tests
 pass ``["cpu"] * S``; ``make_mesh()`` takes every visible card and raises
 without one.

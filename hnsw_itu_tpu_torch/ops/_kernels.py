@@ -13,7 +13,7 @@ pointer and the stream pass as ``ctypes.c_void_p``; the C entry returns
 ``cudaGetLastError()`` after its launch, and a nonzero code raises here.
 ``build_kernels`` builds every source at once, one nvcc process each.
 ``count`` adds to a wrapper's launch counters under a lock, so that
-callers on several threads, and the counts ``parallel.map_devices``
+callers on several threads, and the counts a ``parallel.mesh.CardPool``
 brings back from its worker processes, lose none.
 """
 

@@ -16,18 +16,21 @@ Two strategies, as in the JAX package:
 
 How the port differs from the JAX module, keeping its results:
 
-* A mesh is a list of devices (``parallel/mesh.py``); one process drives
-  every shard's work, and the JAX ``all_gather`` is a copy of each
-  shard's [B, k] top-k to the mesh's first device before the merge. The
-  query loops read nothing back from a card, so the cards of a mesh run
-  their shards at once. ``ShardedNSW.build`` runs through
-  ``map_devices``: a mesh that names one device builds in this process,
-  chunk by chunk over the shards in order; a mesh of several cards builds
-  in one worker process a card, each running its shards the same way, at
-  once (the build's host syncs and Python would otherwise take the cards
-  in turn). A shard's chunk never reads another shard's state, so the
-  graphs do not depend on how many cards the mesh has.
-  ``sharded_build_step`` and ``knns_query_sharded`` loop in the caller.
+* A mesh is a list of devices (``parallel/mesh.py``), and the JAX
+  ``all_gather`` is a copy of each shard's [B, k] top-k to the mesh's
+  first device before the merge. The counterpart of "each chip runs its
+  own program" is a ``CardPool``: on a mesh of several cards one
+  long-lived worker process a card runs that card's shards, in shard
+  order, all cards at once. ``ShardedNSW.build`` builds there (each
+  progressive chunk over the card's shards in order) and keeps the pool
+  for its queries; ``knns`` binds the shard tensors to the workers once
+  (again only when they change) and sends each call's queries and result
+  tensors; ``knns_query_sharded`` runs each card's part in its worker. A
+  mesh that names one device (the CPU tests' ``["cpu"] * S``) runs all of
+  it in the caller, shard after shard. A shard's work never reads another
+  shard's state, and a worker runs the caller's own code, so results do
+  not depend on how many cards the mesh has. ``sharded_build_step``
+  loops in the caller.
 * Per-shard counts that the JAX package keeps on the devices (``eps``,
   ``offsets``, ``ns``) are host integers here: they are known when the
   index is built, and the sampled entry takes its population as an int.
@@ -63,7 +66,7 @@ from ..ops.entry import sampled_entry
 from ..ops.fused_search import MAX_EF, materialize_fused
 from ..ops.metrics import as_points, get_metric
 from ..ops.search import _sort2, batched_beam_search
-from .mesh import Mesh, make_mesh, map_devices, replicate, shard_leading
+from .mesh import CardPool, Mesh, make_mesh, replicate, shard_leading
 
 
 def _metric(metric):
@@ -184,6 +187,27 @@ def _merge(parts, k: int, device: torch.device):
     return d[:, :k], i[:, :k]
 
 
+def _write(out, d, i) -> None:
+    """A worker's top-k (dists, ids) into the caller's result tensors."""
+    if d.dtype != out[0].dtype:
+        raise TypeError(f"{d.dtype} distances for a result tensor of "
+                        f"{out[0].dtype}")
+    out[0].copy_(d)
+    out[1].copy_(i)
+
+
+def _topk_group(view, io, device, shards, args) -> None:
+    """A ``CardPool`` worker's part of ``ShardedNSW.knns``: for each of
+    ``shards`` in order, ``_shard_topk`` on ``view`` (the index's bound
+    shards) at the call's settings, of the queries in ``io`` (the bound
+    query buffer of this card, then its shards' result tensors), written
+    into its result tensors."""
+    q, outs = io
+    for s, out, (k, ef, route, settings) in zip(shards, outs, args):
+        view.__dict__.update(settings)
+        _write(out, *view._shard_topk(s, q, k, ef, route))
+
+
 class ShardedNSW:
     """Index-sharded flat graph: S independent subgraphs, merged top-k.
     Shard ``s`` keeps its tensors on ``mesh.devices[s]``; ``eps``,
@@ -210,6 +234,9 @@ class ShardedNSW:
         # per-shard int32 scalar tensors of reverse edges lost (set by
         # build; None for indexes assembled by hand)
         self.edge_drops_s = None
+        self._pool = None  # the mesh's CardPool, started at first use
+        self._bound = None  # (key, where its tensors lie) in the workers
+        self._io = None  # (shape, key, query buffers, results) there
 
     @classmethod
     def from_numpy(cls, points_s, adj_s, deg_s, eps, offsets, ns, metric,
@@ -238,9 +265,10 @@ class ShardedNSW:
         allocate every shard's tensors on its device, and build every
         subgraph in place (``_build_group``: progressive chunks of at most
         ``opts.batch_size`` rows, each over the shards in order, the
-        counterpart of one ``sharded_build_step``) through ``map_devices``:
-        in this process for a mesh of one device, else in one worker
-        process per card, the cards at once, writing the shared tensors.
+        counterpart of one ``sharded_build_step``) on a ``CardPool``: in
+        this process for a mesh of one device, else in one worker process
+        per card, the cards at once, writing the shared tensors; the index
+        keeps the pool for its queries.
         Each shard's row 0 is its entry point. Spill entries left at the
         end count as drops of their shard. Without ``mesh``, every visible
         card (``make_mesh()``). ``timings``, a dict, gets for each device
@@ -267,7 +295,13 @@ class ShardedNSW:
         work = functools.partial(_build_group, opts=opts, metric=metric,
                                  timed=timings is not None)
         drops = [0] * S
-        for shards, (group, spans) in map_devices(mesh, work, state):
+        pool = CardPool(mesh)
+        try:
+            built = pool.map(work, state)
+        except BaseException:
+            pool.close()
+            raise
+        for shards, (group, spans) in built:
             if timings is not None:
                 timings[mesh.devices[shards[0]]] = spans
             for s, d in zip(shards, group):
@@ -277,6 +311,7 @@ class ShardedNSW:
                   np.zeros(S, np.int32), offs, ns, metric, opts)
         idx.edge_drops_s = [torch.tensor(d, dtype=torch.int32, device=dev)
                             for d, dev in zip(drops, mesh.devices)]
+        idx._pool = pool  # its workers serve the queries
         return idx
 
     def size(self) -> int:
@@ -346,14 +381,120 @@ class ShardedNSW:
         """k nearest neighbors of every query over all shards: each shard
         searches the whole batch at beam width max(ef, k) (from its entry,
         or its sampled entry), on the route ``route`` picks; the per-shard
-        top-k are merged on the mesh's first device."""
+        top-k are merged on the mesh's first device. On a mesh of several
+        cards each card's shards run in its ``CardPool`` worker, all cards
+        at once (``_knns_on_workers``); on one device, in this process,
+        shard after shard. Both run ``_shard_topk``, so results are equal
+        bit for bit."""
         route = self.route(k, ef)
         lead = self.mesh.devices[0]
-        qs = replicate(self.mesh, as_points(queries, lead))
-        parts = [self._shard_topk(s, qs[s], k, ef, route)
-                 for s in range(self.mesh.size)]
+        q = as_points(queries, lead)
+        pool = self._card_pool()
+        if pool.in_caller:
+            qs = replicate(self.mesh, q)
+            parts = [self._shard_topk(s, qs[s], k, ef, route)
+                     for s in range(self.mesh.size)]
+        else:
+            parts = self._knns_on_workers(pool, q, k, ef, route)
         self.last_route = route
         return KnnResult(*_merge(parts, k, lead))
+
+    def _card_pool(self) -> CardPool:
+        if self._pool is None:
+            self._pool = CardPool(self.mesh)
+        return self._pool
+
+    def _held(self) -> list:
+        """Where the tensors a query reads lie, shard by shard."""
+        fused = self.fused_s or [()] * self.mesh.size
+        return [(t.data_ptr(), t.shape, t.stride(), t.dtype)
+                for ts in zip(self.points_s, self.adj_s, fused)
+                for t in (ts[0], ts[1], *ts[2])]
+
+    def _group_view(self, shards) -> "ShardedNSW":
+        """A shallow copy of this index holding only ``shards``' query
+        tensors (the others None), for a worker to bind."""
+        view = object.__new__(type(self))
+        view.__dict__.update(self.__dict__, _pool=None, _bound=None,
+                             _io=None, deg_s=None, edge_drops_s=None)
+        for name in ("points_s", "adj_s", "fused_s"):
+            ts = getattr(self, name)
+            if ts is not None:
+                setattr(view, name, [t if s in shards else None
+                                     for s, t in enumerate(ts)])
+        return view
+
+    def _bind(self, pool: CardPool) -> int:
+        """The key of this index's shard tensors in ``pool``'s workers,
+        bound now if they were not, or were replaced since (by
+        ``enable_inline``, say): each worker gets its card's shards once,
+        shared, never copied. Tensors written in place need no new bind:
+        the workers read the same memory."""
+        if self._bound is None or self._bound[1] != self._held():
+            self.unbind()
+            key = pool.bind([self._group_view(g) for g in pool.groups])
+            # sharing moves a CPU tensor to shared memory: note it there
+            self._bound = (key, self._held())
+        return self._bound[0]
+
+    def _io_buffers(self, pool: CardPool, q, k: int):
+        """(key, query buffers by device, results by shard) for queries
+        shaped as ``q`` at ``k``: one query buffer a card and one [B, k]
+        (dists, ids) pair a shard, allocated here on their devices and
+        bound to the workers once, so a call shares no tensor (sharing
+        one costs an IPC handle on each side). Kept for the last shape
+        only."""
+        shape = (tuple(q.shape), q.dtype, k)
+        if self._io is None or self._io[0] != shape:
+            self._drop_io()
+            B = q.shape[0]
+            qbuf = {d: torch.empty_like(q, device=d)
+                    for d in dict.fromkeys(self.mesh.devices)}
+            outs = [(torch.empty((B, k), dtype=self.metric.dist_dtype,
+                                 device=d),
+                     torch.empty((B, k), dtype=torch.int32, device=d))
+                    for d in self.mesh.devices]
+            key = pool.bind([(qbuf[self.mesh.devices[g[0]]],
+                              [outs[s] for s in g]) for g in pool.groups])
+            self._io = (shape, key, qbuf, outs)
+        return self._io[1:]
+
+    def _drop_io(self) -> None:
+        if self._io is not None:
+            key, self._io = self._io[1], None
+            self._pool.drop(key)
+
+    def unbind(self) -> None:
+        """Release this index's tensors in its pool's workers."""
+        self._drop_io()
+        if self._bound is not None:
+            key, self._bound = self._bound[0], None
+            self._pool.drop(key)
+
+    def close(self) -> None:
+        """Stop this index's worker processes (they release its tensors
+        first). Queries start a new pool; idempotent."""
+        if self._pool is not None:
+            pool, self._pool, self._bound, self._io = self._pool, None, \
+                None, None
+            pool.close()
+
+    def _knns_on_workers(self, pool: CardPool, q, k: int, ef: int,
+                         route: str):
+        """Every shard's top-k from its card's worker: the queries are
+        copied into each card's bound query buffer, and each worker writes
+        its shards' bound result tensors in place (``_topk_group``).
+        Returns the results, valid until the next call."""
+        key = self._bind(pool)
+        io_key, qbuf, outs = self._io_buffers(pool, q, k)
+        for buf in qbuf.values():
+            buf.copy_(q)
+        settings = dict(query_expand=self.query_expand,
+                        query_entry_sample=self.query_entry_sample,
+                        max_steps=self.max_steps)
+        pool.map(_topk_group, [(k, ef, route, settings)] * self.mesh.size,
+                 bound=(key, io_key), keep_cache=True)
+        return outs
 
     def search(self, query, k: int, ef: int) -> KnnResult:
         return search_one(self, query, k, ef)
@@ -372,17 +513,55 @@ class ShardedHNSW(ShardedNSW):
         self.query_entry_sample = self.DEFAULT_ENTRY_SAMPLE
 
 
+def _query_part(points, adj, levels, q, *, hnsw: bool, n: int, ep: int,
+                entry_sample: int, metric, dedup: str, expand: int,
+                steps: int, tie_bits: int, k: int, ef: int):
+    """One part of ``knns_query_sharded`` on its device: the entry (the
+    NSW's ``ep``; for HNSW the sampled entry or the greedy descent through
+    ``levels``, [(node_ids, down, adj, deg), ...]), then the general beam
+    search at max(ef, k). Returns (dists, ids) [b, k]."""
+    if not hnsw:
+        eps = torch.full((q.shape[0],), ep, dtype=torch.int32,
+                         device=q.device)
+    elif entry_sample > 0:
+        eps = sampled_entry(points, q, n, sample_size=entry_sample,
+                            metric=metric)
+    else:
+        eps = descent_eps(points, [Level(a, b, GraphArrays(c, d))
+                                   for a, b, c, d in levels],
+                          q, ep, metric=metric, max_steps=steps)
+    res = batched_beam_search(
+        lambda ids: points[ids], adj, q, eps, ef=max(ef, k), metric=metric,
+        capacity=adj.shape[0], expand=expand, max_steps=steps, dedup=dedup,
+        tie_bits=tie_bits)
+    return res.dists[:, :k], res.ids[:, :k]
+
+
+def _query_group(device, shards, args, **kw) -> None:
+    """A ``CardPool`` worker's parts of ``knns_query_sharded``: each
+    shard's ``_query_part`` in order, written into the caller's result
+    tensors."""
+    for *part, out in args:
+        _write(out, *_query_part(*part, **kw))
+
+
 def knns_query_sharded(index, queries, k: int, ef: int,
-                       mesh: Mesh | None = None) -> KnnResult:
+                       mesh: Mesh | None = None, *,
+                       pool: CardPool | None = None) -> KnnResult:
     """Replicated-index data parallelism over queries for a single-device
     NSW or HNSW: the batch is padded to a multiple of S and split, the
-    index's points, base adjacency and levels are copied once to each
-    distinct device of the mesh (not at all to its own), and each part
-    runs the general route: for HNSW the sampled entry or the greedy
-    descent, then the general beam search at max(ef, k). Results equal the
-    index's general route; a reordered index returns original ids. An
-    index's fused or mini table, and ``query_hop``, are not used (warned,
-    as in the JAX package)."""
+    index's points, base adjacency and levels are copied at each call to
+    each distinct device of the mesh (not at all to its own), and each
+    part runs the general route (``_query_part``): for HNSW the sampled
+    entry or the greedy descent, then the general beam search at
+    max(ef, k). On a mesh of several cards each card's parts run in its
+    worker of ``pool`` (a ``CardPool`` over ``mesh``, which it defaults to;
+    without one, a pool started and stopped for this call), all cards at
+    once, each writing result tensors allocated here; on one device, in
+    this process, part after part. Results equal the index's general
+    route; a reordered index returns original ids. An index's fused or
+    mini table, and ``query_hop``, are not used (warned, as in the JAX
+    package)."""
     if (getattr(index, "fused", None) is not None
             or getattr(index, "mini", None) is not None
             or getattr(index, "query_hop", 0)):
@@ -393,7 +572,9 @@ def knns_query_sharded(index, queries, k: int, ef: int,
             "is lost",
             stacklevel=2,
         )
-    mesh = mesh or make_mesh()
+    if pool is not None and mesh is not None and mesh != pool.mesh:
+        raise ValueError("knns_query_sharded: the pool serves another mesh")
+    mesh = mesh or (pool.mesh if pool is not None else make_mesh())
     S = mesh.size
     lead = mesh.devices[0]
     qs = as_points(queries, lead)
@@ -401,38 +582,37 @@ def knns_query_sharded(index, queries, k: int, ef: int,
     pad = (-nq) % S
     if pad:
         qs = torch.cat([qs, qs[:1].expand(pad, *qs.shape[1:])])
-    parts = qs.chunk(S)
     hnsw = hasattr(index, "levels")
     points_r = replicate(mesh, index.points)
     adj_r = replicate(mesh, index._base().adj)
     levels_r = [[replicate(mesh, t) for t in (lv.node_ids, lv.down,
                                               lv.graph.adj, lv.graph.deg)]
                 for lv in index.levels] if hnsw else []
-    steps = index._steps_cap(ef)
-    out = []
-    for s, dev in enumerate(mesh.devices):
-        q, points, adj = parts[s].to(dev), points_r[s], adj_r[s]
-        if not hnsw:
-            eps = torch.full((q.shape[0],), index.ep, dtype=torch.int32,
-                             device=dev)
-            dedup = "bitmask"  # the JAX step's default
+    kw = dict(hnsw=hnsw, n=index.n, ep=int(index.ep),
+              entry_sample=index.query_entry_sample if hnsw else 0,
+              metric=index.metric,
+              dedup=index.query_dedup if hnsw else "bitmask",  # JAX's
+              expand=index.query_expand, steps=index._steps_cap(ef),
+              tie_bits=index._tie_bits(), k=k, ef=ef)
+    parts = [(points_r[s], adj_r[s], [[t[s] for t in lv] for lv in levels_r],
+              q.to(dev)) for s, (q, dev) in enumerate(zip(qs.chunk(S),
+                                                         mesh.devices))]
+    own = pool is None
+    pool = CardPool(mesh) if own else pool
+    try:
+        if pool.in_caller:
+            out = [_query_part(*p, **kw) for p in parts]
         else:
-            if index.query_entry_sample > 0:
-                eps = sampled_entry(points, q, index.n,
-                                    sample_size=index.query_entry_sample,
-                                    metric=index.metric)
-            else:
-                levels = [Level(a[s], b[s], GraphArrays(c[s], d[s]))
-                          for a, b, c, d in levels_r]
-                eps = descent_eps(points, levels, q, index.ep,
-                                  metric=index.metric, max_steps=steps)
-            dedup = index.query_dedup
-        res = batched_beam_search(
-            lambda ids, p=points: p[ids], adj, q, eps, ef=max(ef, k),
-            metric=index.metric, capacity=adj.shape[0],
-            expand=index.query_expand, max_steps=steps, dedup=dedup,
-            tie_bits=index._tie_bits())
-        out.append((res.dists[:, :k], res.ids[:, :k]))
+            b = qs.shape[0] // S
+            out = [(torch.empty((b, k), dtype=index.metric.dist_dtype,
+                                device=d),
+                    torch.empty((b, k), dtype=torch.int32, device=d))
+                   for d in mesh.devices]
+            pool.map(functools.partial(_query_group, **kw),
+                     [(*p, o) for p, o in zip(parts, out)], keep_cache=True)
+    finally:
+        if own:
+            pool.close()
     d = torch.cat([o[0].to(lead) for o in out])[:nq]
     i = torch.cat([o[1].to(lead) for o in out])[:nq]
     return KnnResult(d, _map_back(index, i))

@@ -3,8 +3,9 @@ checks: ``tests/test_torch_kernels.py`` and ``chip_smoke.py`` phase 2 both
 draw their small cases from here, so the two lists cannot drift apart.
 
 Every case is made from a seed with ``numpy.random.default_rng``; nothing
-here touches a device. ``probe_group`` is a ``parallel.map_devices`` work
-function for the tests: a worker process imports it by name.
+here touches a device. ``probe_group`` and ``held_group`` are
+``parallel.mesh.CardPool`` work functions for the tests: a worker process
+imports them by name.
 """
 
 from __future__ import annotations
@@ -177,3 +178,22 @@ def probe_group(device, shards, args):
                       torch.zeros((2, 1), dtype=torch.int32))
         out.append((os.getpid(), s, a, str(device)))
     return out
+
+
+class DropProbe:
+    """An object that appends its process id to the file ``path`` when
+    it is dropped: bound in a ``CardPool`` worker, it shows that the
+    worker released what it held."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __del__(self):
+        with open(self.path, "a") as f:
+            f.write(f"{os.getpid()}\n")
+
+
+def held_group(probe, device, shards, args):
+    """A ``CardPool.map`` job on a bound probe: (process id, the probe's
+    path) for each of ``shards``."""
+    return [(os.getpid(), probe.path) for _ in shards]
