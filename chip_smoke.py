@@ -270,10 +270,18 @@ GATHER_CASES = [(32, 24, 1, False, False), (64, 48, 1, False, False),
                 (64, 1, 1, True, False), (32, 24, 4, False, False),
                 (64, 96, 4, True, False), (64, 48, 1, True, True),
                 (32, 128, 4, True, True), (64, 96, 1, False, True)]
-# the last: a prune block of the M=256 build (prune_budget rows of 256
-# neighbors plus the spill width)
+# [M, N, words] or [P, M, N, words]: a prune block of the M=256 build
+# (prune_budget rows of 256 neighbors plus the spill width); blocks of 95
+# and 97 rows and columns (not multiples of 16 or 8); words 1, 31, 33 and
+# 64; a 2-D block wider than one tile in both directions
 HAM_SHAPES = [(7, 129, 32), (96, 96, 32), (130, 33, 5), (3, 72, 72, 32),
-              (17, 96, 96, 32), (5, 31, 65, 7), (256, 264, 264, 32)]
+              (17, 96, 96, 32), (5, 31, 65, 7), (256, 264, 264, 32),
+              (4, 95, 97, 1), (4, 97, 95, 31), (3, 96, 96, 33),
+              (64, 200, 64), (1000, 4100, 32)]
+# [P, C, words] blocks of x against itself (hamming_block(x, x), as the
+# build calls it): C = 95, 97, 96 and 264, words 64, and P past 65,535
+HAM_SELF_SHAPES = [(16, 96, 96, 32), (6, 95, 95, 32), (6, 97, 97, 32),
+                   (4, 264, 264, 32), (2, 264, 264, 64), (70_000, 12, 12, 32)]
 # the ef sweep of the redesigned kernels, at a fixed expansion bound: a
 # flat time says read latency bounds them, a rising one that their
 # per-step loops still cost
@@ -325,9 +333,13 @@ RUNNER_QUERY_BATCH = 8192
 # recall, not for time)
 RUNNER_JAX_RECALL = {48: 0.9995, 32: 0.9994}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+# the H100 SXM's dense int8 tensor-core rate (NVIDIA's data sheet): kernel
+# #7's bit products, 2 operations each, counted at it
+INT8_OPS_PER_S = 1.979e15
 # __popc: 16 results per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), 132 SMs at the
-# H100 SXM's 1.98 GHz boost clock
+# H100 SXM's 1.98 GHz boost clock: the ceiling of #7's earlier one-__popc-
+# a-word-pair design, kept on record as popc_ms
 POPC_PER_S = 16 * 132 * 1.98e9
 
 
@@ -823,18 +835,20 @@ def phase_small_build_kernels(dev):
             raise AssertionError(f"gather kernel != plain at W={w} ef={ef} "
                                  f"E={E} mapped={mapped} repeats={repeats}")
     worst7 = 0
-    for shape in HAM_SHAPES:
+    for shape, self_block in ([(s, False) for s in HAM_SHAPES]
+                              + [(s, True) for s in HAM_SELF_SHAPES]):
         rng = np.random.default_rng(sum(shape))
         *lead, m, n, words = shape
         a = as_sketches(rng.integers(0, 2**32, size=(*lead, m, words),
                                      dtype=np.uint32), dev)
-        b = as_sketches(rng.integers(0, 2**32, size=(*lead, n, words),
-                                     dtype=np.uint32), dev)
+        b = a if self_block else as_sketches(rng.integers(
+            0, 2**32, size=(*lead, n, words), dtype=np.uint32), dev)
         err = max_abs_diff((hamming_block(a, b),),
                            (hamming_block_plain(a, b),))
         worst7 = max(worst7, err)
-        log(f"[2] hamming block {tuple(shape)}: kernel vs plain max |diff| "
-            f"{err}")
+        log(f"[2] hamming block {tuple(shape)}"
+            f"{' (a is b)' if self_block else ''}: kernel vs plain max "
+            f"|diff| {err}")
         if err:
             raise AssertionError(f"hamming kernel != plain at {shape}")
     return worst6, worst7
@@ -1200,12 +1214,31 @@ def mxu_block(a, b):
         - 2 * dots
 
 
+def hamming_bound(a, b, out) -> dict:
+    """Kernel #7's bound on ``hamming_block(a, b) -> out``: the larger of
+    its bit products (M N words 32 a block, 2 operations each) at the
+    int8 tensor-core rate and its bytes (each input read once, one input
+    when ``a is b``, the int32 output written once) at HBM's rate; which
+    of the two bounds it; and, as ``popc_ms``, the word popcounts at the
+    __popc rate (the ceiling of the earlier __popc design)."""
+    words = a.shape[-1]
+    pairs = out.numel() * words  # word pairs, one popcount each
+    ops_ms = 2 * pairs * 32 / INT8_OPS_PER_S * 1e3
+    nbytes = (a.numel() + (0 if b is a else b.numel()) + out.numel()) * 4
+    mem_ms = bound_ms(nbytes)
+    return {"bound_ms": max(ops_ms, mem_ms),
+            "bound_by": "operations" if ops_ms > mem_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": mem_ms, "bytes": nbytes,
+            "popc_ms": pairs / POPC_PER_S * 1e3}
+
+
 def hamming_vs_plain(x, what, smi, tag):
     """Kernel #7 on the block ``x`` [P, C, words] against itself (as the
     build's select and prune blocks run it), held against its plain
-    version (max |diff| must be 0) and timed with its bound: the larger of
-    the popcounts at the card's __popc rate and one read of ``x`` plus one
-    write of the [P, C, C] result at HBM's rate."""
+    version and against ``Hamming.pairwise_mxu``'s route (max |diff| must
+    be 0 for both), and timed beside both with its bound
+    (``hamming_bound``); the ``pairwise_mxu`` route is its library
+    call."""
     from hnsw_itu_tpu_torch.ops.hamming import (hamming_block,
                                                 hamming_block_plain)
 
@@ -1215,20 +1248,49 @@ def hamming_vs_plain(x, what, smi, tag):
         f"plain max |diff| {err}")
     if err:
         raise AssertionError(f"hamming kernel != plain at {tuple(x.shape)}")
+    if max_abs_diff((got,), (mxu_block(x, x),)):
+        raise AssertionError(f"pairwise_mxu route != hamming block at "
+                             f"{tuple(x.shape)}")
     k_ms = cuda_ms(lambda: hamming_block(x, x), 10)
     p_ms = cuda_ms(lambda: hamming_block_plain(x, x), 2)
-    P, C, words = x.shape
-    pops = P * C * C * words
-    nbytes = x.numel() * 4 + got.numel() * 4  # one input (a is b)
-    ops_ms, mem_ms = pops / POPC_PER_S * 1e3, bound_ms(nbytes)
-    by = "operations" if ops_ms >= mem_ms else "bytes"
+    l_ms = cuda_ms(lambda: mxu_block(x, x), 5)
+    bd = hamming_bound(x, x, got)
     log(f"[{tag}] on {smi}: hamming block {k_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms; {pops:.3e} popcounts = {ops_ms:.4f} ms at "
-        f"{POPC_PER_S:.3e}/s, {nbytes / 1e9:.4f} GB = {mem_ms:.4f} ms: "
-        f"bound {max(ops_ms, mem_ms):.4f} ms by {by}")
+        f"{p_ms:.3f} ms, pairwise_mxu route (unpack + float32 "
+        f"torch.matmul) {l_ms:.3f} ms; bit products {bd['ops_ms']:.4f} ms "
+        f"at {INT8_OPS_PER_S:.3e} op/s, {bd['bytes'] / 1e9:.4f} GB = "
+        f"{bd['bytes_ms']:.4f} ms: bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']} ({bd['bound_ms'] / k_ms:.0%} of it); the __popc "
+        f"ceiling {bd['popc_ms']:.4f} ms")
     return {"shape": list(got.shape), "max_abs_err": err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": max(ops_ms, mem_ms),
-            "bound_by": by}
+            "plain_ms": p_ms, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": l_ms,
+            "popc_ms": bd["popc_ms"]}
+
+
+def entry_block_vs_mxu(q, sample, smi, tag):
+    """Kernel #7 at the sampled entry's shape, every query against the
+    sample (timed only: the entry keeps ``pairwise_mxu``): equal to
+    ``Hamming.pairwise_mxu`` there (raises otherwise), both timed, and
+    #7's bound."""
+    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+    from hnsw_itu_tpu_torch.ops.metrics import HAMMING
+
+    got = hamming_block(q, sample)
+    if max_abs_diff((got,), (HAMMING.pairwise_mxu(q, sample),)):
+        raise AssertionError(f"hamming block != pairwise_mxu at the entry "
+                             f"{tuple(got.shape)}")
+    bd = hamming_bound(q, sample, got)
+    del got
+    ke = cuda_ms(lambda: hamming_block(q, sample), 10)
+    le = cuda_ms(lambda: HAMMING.pairwise_mxu(q, sample), 3)
+    log(f"[{tag}] on {smi}: entry shape {tuple(q.shape)} x "
+        f"{sample.shape[0]}: hamming block {ke:.3f} ms (equal to "
+        f"pairwise_mxu), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
+        f"pairwise_mxu {le:.3f} ms (the entry keeps pairwise_mxu)")
+    return {"shape": [q.shape[0], sample.shape[0]], "ms": ke,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "pairwise_mxu_ms": le}
 
 
 def phase_build_kernels(index, qs, dev, smi):
@@ -1242,7 +1304,6 @@ def phase_build_kernels(index, qs, dev, smi):
     from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
     from hnsw_itu_tpu_torch.ops.entry import sampled_entry
-    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
     from hnsw_itu_tpu_torch.ops.metrics import (HAMMING, as_sketches,
                                                 popcount_sum)
     from hnsw_itu_tpu_torch.ops.mini_search import IINF
@@ -1308,29 +1369,12 @@ def phase_build_kernels(index, qs, dev, smi):
     bi = (keys & 0xFFFFFFFF).to(torch.int32)
     cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
     ham = hamming_vs_plain(cand, "select, one chunk", smi, "10")
-    l7 = cuda_ms(lambda: mxu_block(cand, cand), 10)
-    if max_abs_diff((mxu_block(cand, cand),), (hamming_block(cand, cand),)):
-        raise AssertionError("pairwise_mxu route != hamming block")
-    log(f"[10] on {smi}: pairwise_mxu route (unpack + float32 "
-        f"torch.matmul) {l7:.3f} ms at the same block")
 
     # the sampled entry's shape: every query against the 1024-point sample
-    qe = as_sketches(qs, dev)
     sample = points[torch.linspace(0, index.n - 1, SAMPLE,
                                    device=dev).long()].contiguous()
-    ke = cuda_ms(lambda: hamming_block(qe, sample), 10)
-    le = cuda_ms(lambda: HAMMING.pairwise_mxu(qe, sample), 10)
-    if max_abs_diff((hamming_block(qe, sample),),
-                    (HAMMING.pairwise_mxu(qe, sample),)):
-        raise AssertionError("hamming block != pairwise_mxu at the entry")
-    log(f"[10] on {smi}: entry shape {tuple(qe.shape)} x {SAMPLE}: hamming "
-        f"block {ke:.3f} ms, pairwise_mxu {le:.3f} ms (the entry keeps "
-        "pairwise_mxu)")
-    return {
-        "dma": dma,
-        "ham": {**ham, "library_ms": l7, "entry_ms": ke,
-                "entry_mxu_ms": le},
-    }
+    entry = entry_block_vs_mxu(as_sketches(qs, dev), sample, smi, "10")
+    return {"dma": dma, "ham": {**ham, "entry": entry}}
 
 
 def phase_build_query(index, pts, qs, dev, smi):
@@ -2468,14 +2512,25 @@ def flagship_build_kernels(index, pts, dev, smi):
     from hnsw_itu_tpu_torch.ops.entry import sampled_entry
     from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches
 
+    import torch
+
     B = FLAGSHIP_OPTS["batch_size"] * 16
     q = as_sketches(pts[len(pts) - B:], dev)
     eps = sampled_entry(index.points, q, index.n,
                         sample_size=FLAGSHIP_OPTS["entry_sample"],
                         metric=HAMMING)
-    return chunk_kernels(index.base.adj, index.points, q, eps,
-                         FLAGSHIP_OPTS["ef_construction"], smi, "18",
-                         f"a {index.n}-point build chunk")
+    rec = chunk_kernels(index.base.adj, index.points, q, eps,
+                        FLAGSHIP_OPTS["ef_construction"], smi, "18",
+                        f"a {index.n}-point build chunk")
+    # the wide sampled entry's block: a query batch against the
+    # 65,536-point sample (timed only)
+    sample = index.points[torch.linspace(0, index.n - 1, MINI_WIDE_SAMPLE,
+                                         device=dev).long()].contiguous()
+    rec["ham"]["entry"] = entry_block_vs_mxu(q[:FLAGSHIP_QUERY_BATCH], sample,
+                                             smi, "18")
+    del sample
+    torch.cuda.empty_cache()
+    return rec
 
 
 def chunk_kernels(adj, points, q, eps, efc, smi, tag, what):
@@ -2487,7 +2542,7 @@ def chunk_kernels(adj, points, q, eps, efc, smi, tag, what):
     import torch
 
     from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
-    from hnsw_itu_tpu_torch.ops.metrics import HAMMING, popcount_sum
+    from hnsw_itu_tpu_torch.ops.metrics import popcount_sum
     from hnsw_itu_tpu_torch.ops.mini_search import IINF
     from hnsw_itu_tpu_torch.ops.search import beam_search_gather
 
@@ -2512,12 +2567,6 @@ def chunk_kernels(adj, points, q, eps, efc, smi, tag, what):
     bi = (keys & 0xFFFFFFFF).to(torch.int32)
     cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
     ham = hamming_vs_plain(cand, f"select, {what}", smi, tag)
-    if max_abs_diff((mxu_block(cand, cand),), (HAMMING.pairwise_block(
-            cand, cand),)):
-        raise AssertionError("pairwise_mxu route != hamming block")
-    ham["library_ms"] = cuda_ms(lambda: mxu_block(cand, cand), 5)
-    log(f"[{tag}] on {smi}: pairwise_mxu route {ham['library_ms']:.3f} ms at "
-        "the same block")
     return {"dma": {"max_abs_err": err, "ms": k6, "plain_ms": p6,
                     "bound_ms": b6, "searches": B, "ef": efc,
                     "steps_q": rows / B, "visited_q": (fresh + B) / B},
@@ -3852,8 +3901,8 @@ def main(argv=None) -> int:
         "bound_by": bk["ham"]["bound_by"],
         # Hamming.pairwise_mxu's route: bit unpack + one float32 matmul
         "library_ms": bk["ham"]["library_ms"],
-        "entry_shape": {"ms": bk["ham"]["entry_ms"],
-                        "pairwise_mxu_ms": bk["ham"]["entry_mxu_ms"]},
+        "popc_ms": bk["ham"]["popc_ms"],  # the earlier __popc design
+        "entry_shape": bk["ham"]["entry"],
         # phase 12: the select and prune blocks of the M=256 CLI build,
         # each against its plain version at the build's own shape
         "cli_build": {"launches": cli["ham_launches"], **cli["ham"]},

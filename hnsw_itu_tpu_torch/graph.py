@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .ops.metrics import HAMMING
-from .ops.select import select_neighbors_points
+from .ops.select import select_neighbors, select_neighbors_points
 
 
 class GraphArrays(NamedTuple):
@@ -100,10 +100,12 @@ def prune_rows(g: GraphArrays, node_ids: torch.Tensor,
                metric=HAMMING) -> GraphArrays:
     """Re-run the diversity heuristic over each listed node's neighborhood
     and rebuild its row (the degree-cap prune of insert_neighbors) on
-    ``metric``. The candidate block is ``metric.pairwise_block`` where the
-    JAX function calls ``metric.pairwise``: the same integers for every
-    integer metric; for ``l2`` the norm expansion where JAX takes the
-    direct difference, float32 values that may differ in the last bits.
+    ``metric``. The JAX function builds the candidate block with
+    ``metric.pairwise``. An integer metric takes ``metric.pairwise_block``
+    here instead, on the candidates in pop order: the same integers (for
+    Hamming, the dense Hamming kernel on the card). A float metric takes
+    ``metric.pairwise`` as JAX does (for ``l2`` the direct difference,
+    not the norm expansion of its ``pairwise_block``).
 
     Args:
       node_ids: int32[P] nodes to prune (< 0 entries are skipped).
@@ -122,8 +124,12 @@ def prune_rows(g: GraphArrays, node_ids: torch.Tensor,
         valid = torch.cat([valid, (extra_ids >= 0) & live], dim=1)
         nbr_pts = torch.cat([nbr_pts, extra_pts], dim=1)
     d = metric.one_to_many(node_pts, nbr_pts)
-    sel_rows, _, n_sel = select_neighbors_points(nbr_pts, d, rows, valid,
-                                                 m_max, metric)
+    if metric.dist_dtype.is_floating_point:
+        sel_rows, _, n_sel = select_neighbors(
+            d, rows, metric.pairwise(nbr_pts, nbr_pts), valid, m_max)
+    else:
+        sel_rows, _, n_sel = select_neighbors_points(nbr_pts, d, rows, valid,
+                                                     m_max, metric)
     if W > m_max:
         sel_rows = torch.cat([sel_rows, torch.full(
             (sel_rows.shape[0], W - m_max), -1, dtype=torch.int32,

@@ -22,7 +22,9 @@ from . import _kernels
 from .metrics import popcount_sum
 
 MAX_WORDS = 64  # widest sketch the kernel stages in shared memory
-_MAX_ROWS = 65535 * 32  # rows the kernel's grid covers (gridDim.y * tile)
+# rows and blocks the C entry's int arguments carry (its persistent grid
+# walks any number of tiles)
+_MAX_ROWS = 2**31 - 1
 _PLAIN_ELEMS = 1 << 23  # word pairs per pass of the plain version
 
 
@@ -37,6 +39,22 @@ def _check_inputs(a: torch.Tensor, b: torch.Tensor) -> None:
                                       a.shape[0] != b.shape[0]):
         raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} "
                          "differ in words or batch")
+
+
+def _check_launch(a: torch.Tensor, b: torch.Tensor) -> None:
+    """What the kernel takes beyond ``_check_inputs``: contiguous rows of
+    1 to ``MAX_WORDS`` words, and at most ``_MAX_ROWS`` rows in a, in b
+    and blocks in the batch."""
+    _check_inputs(a, b)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("a and b must be contiguous")
+    words = a.shape[-1]
+    if not 1 <= words <= MAX_WORDS:
+        raise ValueError(f"words={words} outside [1, {MAX_WORDS}]")
+    for what, size in (("rows of a", a.shape[-2]), ("rows of b", b.shape[-2]),
+                       ("blocks", a.shape[0] if a.dim() == 3 else 1)):
+        if size > _MAX_ROWS:
+            raise ValueError(f"{size} {what} > {_MAX_ROWS}")
 
 
 def hamming_block_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,14 +91,7 @@ def hamming_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return hamming_block_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no hamming block for {a.device}")
-    _check_inputs(a, b)
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("a and b must be contiguous")
-    words = a.shape[-1]
-    if not 1 <= words <= MAX_WORDS:
-        raise ValueError(f"words={words} outside [1, {MAX_WORDS}]")
-    if a.shape[-2] > _MAX_ROWS:
-        raise ValueError(f"{a.shape[-2]} rows > {_MAX_ROWS}")
+    _check_launch(a, b)
     out = torch.empty((*a.shape[:-1], b.shape[-2]), dtype=torch.int32,
                       device=a.device)
     if out.numel() == 0:

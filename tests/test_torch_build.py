@@ -25,13 +25,14 @@ from hnsw_itu_tpu.models import _build as jbuild
 from hnsw_itu_tpu.models.hnsw import HNSWBuilder as JaxBuilder
 from hnsw_itu_tpu.models.nsw import _materialize_inline
 from hnsw_itu_tpu.ops import HAMMING as JAX_HAMMING
+from hnsw_itu_tpu.ops import L2 as JAX_L2
 from hnsw_itu_tpu.ops.select import select_neighbors as jax_select
 from hnsw_itu_tpu_torch import graph as pgraph
 from hnsw_itu_tpu_torch.models import IndexOptions
 from hnsw_itu_tpu_torch.models import _build as pbuild
 from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
 from hnsw_itu_tpu_torch.ops.dma_search import dma_beam_search
-from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches
+from hnsw_itu_tpu_torch.ops.metrics import HAMMING, L2, as_sketches
 from hnsw_itu_tpu_torch.ops.select import select_neighbors
 from hnsw_itu_tpu_torch.utils import builder_from_numpy, make_dataset
 from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
@@ -217,6 +218,39 @@ def test_prune_rows_matches_jax(extra, m_max):
     np.testing.assert_array_equal(got.adj.numpy(), _np(want.adj))
     np.testing.assert_array_equal(got.deg.numpy(), _np(want.deg))
 
+
+
+@pytest.mark.parametrize("extra", [False, True])
+def test_prune_rows_l2_matches_jax(extra):
+    """``l2`` prunes on the direct difference, as the JAX function does:
+    points far from the origin and close to each other, where the norm
+    expansion of ``pairwise_mxu`` loses every digit of a pair's distance
+    to float32 rounding, keep the rows JAX keeps."""
+    rng = np.random.default_rng(9 + extra)
+    cap, W, dim, P, X, m_max = 64, 8, 16, 24, 3, 5
+    adj, deg = _random_graph(rng, cap, W, full_share=0.7)
+    pts = (100.0 + 0.01 * rng.normal(size=(cap, dim))).astype(np.float32)
+    node_ids = rng.permutation(cap)[:P].astype(np.int32)
+    node_ids[[0, 7]] = -1
+    safe = np.clip(node_ids, 0, cap - 1)
+    node_pts, nbr_pts = pts[safe], pts[np.clip(adj[safe], 0, cap - 1)]
+    kw_j, kw_p = {}, {}
+    if extra:
+        ex = rng.integers(0, cap, size=(P, X)).astype(np.int32)
+        ex[rng.random((P, X)) < 0.4] = -1
+        ex_pts = pts[np.clip(ex, 0, cap - 1)]
+        kw_j = dict(extra_ids=jnp.asarray(ex), extra_pts=jnp.asarray(ex_pts))
+        kw_p = dict(extra_ids=_t(ex), extra_pts=torch.from_numpy(ex_pts))
+    want = jgraph.prune_rows(
+        jgraph.GraphArrays(jnp.asarray(adj), jnp.asarray(deg)),
+        jnp.asarray(node_ids), jnp.asarray(node_pts), jnp.asarray(nbr_pts),
+        m_max, JAX_L2, **kw_j)
+    got = pgraph.prune_rows(_port_graph(adj, deg), _t(node_ids),
+                            torch.from_numpy(node_pts),
+                            torch.from_numpy(nbr_pts), m_max, **kw_p,
+                            metric=L2)
+    np.testing.assert_array_equal(got.adj.numpy(), _np(want.adj))
+    np.testing.assert_array_equal(got.deg.numpy(), _np(want.deg))
 
 # -- build steps from a mid-build state ---------------------------------------
 

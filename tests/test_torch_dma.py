@@ -49,6 +49,55 @@ def test_hamming_block_matches_pallas(m, n, words):
         got.numpy(), np.asarray(JAX_HAMMING.pairwise(a, b)))
 
 
+@pytest.mark.parametrize("m,n,words", [(95, 97, 1), (97, 95, 31),
+                                       (96, 96, 33), (40, 264, 64)])
+def test_hamming_identity_matches_pallas_at_edge_words(m, n, words):
+    """The identity the CUDA kernel computes, popc(a) + popc(b) - 2 <bits
+    of a, bits of b> (``Hamming.pairwise_mxu``), and the plain version
+    equal the Pallas kernel at word counts that are not a multiple of its
+    8-word k slices (1, 31, 33) and at the widest sketch (64)."""
+    rng = np.random.default_rng(m + n + words)
+    a, b = _sketches(rng, m, words), _sketches(rng, n, words)
+    want = np.asarray(hamming_block_padded(jnp.asarray(a), jnp.asarray(b),
+                                           interpret=True))
+    ta, tb = as_sketches(a, "cpu"), as_sketches(b, "cpu")
+    np.testing.assert_array_equal(hamming_block_plain(ta, tb).numpy(), want)
+    np.testing.assert_array_equal(HAMMING.pairwise_mxu(ta, tb).numpy(), want)
+    # a is b, as the build calls it
+    np.testing.assert_array_equal(
+        hamming_block_plain(ta, ta).numpy(),
+        np.asarray(hamming_block_padded(jnp.asarray(a), jnp.asarray(a),
+                                        interpret=True)))
+
+
+def test_hamming_launch_limits():
+    """The kernel's limits, checked before any launch (meta tensors hold
+    no data): words in [1, 64]; rows of a and of b and blocks in the
+    batch up to the C entry's int, which the persistent grid walks
+    whatever the count (the earlier grid took 65535 * 32 rows of a)."""
+    limit = hamming_mod._MAX_ROWS
+    assert limit == 2**31 - 1
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    hamming_mod._check_launch(meta(65535 * 32 + 1, 32), meta(8, 32))
+    hamming_mod._check_launch(meta(limit, 32), meta(limit, 32))
+    hamming_mod._check_launch(meta(70_000, 12, 32), meta(70_000, 12, 32))
+    with pytest.raises(ValueError, match="rows of a"):
+        hamming_mod._check_launch(meta(limit + 1, 32), meta(8, 32))
+    with pytest.raises(ValueError, match="rows of b"):
+        hamming_mod._check_launch(meta(8, 32), meta(limit + 1, 32))
+    with pytest.raises(ValueError, match="blocks"):
+        hamming_mod._check_launch(meta(limit + 1, 1, 32),
+                                  meta(limit + 1, 1, 32))
+    for words in (0, 65):
+        with pytest.raises(ValueError, match="words"):
+            hamming_mod._check_launch(meta(4, words), meta(4, words))
+    with pytest.raises(ValueError, match="contiguous"):
+        hamming_mod._check_launch(meta(4, 64)[:, :32], meta(4, 32))
+
+
 @pytest.mark.parametrize("p,m,n,words", [(5, 96, 96, 32), (3, 72, 72, 32),
                                          (4, 17, 130, 5)])
 def test_hamming_block_batched_matches_jax(p, m, n, words, monkeypatch):

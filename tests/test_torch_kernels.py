@@ -319,13 +319,22 @@ def test_gather_kernel_seeds_map_repeats(cuda_device, w, ef, E, mapped,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1, 32), (7, 129, 32), (96, 96, 32),
-                                   (130, 33, 5), (64, 200, 64),
-                                   (3, 72, 72, 32), (17, 96, 96, 32),
-                                   (5, 31, 65, 7)])
-def test_hamming_kernel_matches_plain(cuda_device, shape):
-    """Odd sizes on both sides (edges guarded, not padded), word counts
-    that are not a multiple of 4, and batched blocks."""
+@pytest.mark.parametrize("shape,self_block", [
+    ((1, 1, 32), False), ((7, 129, 32), False), ((96, 96, 32), False),
+    ((130, 33, 5), False), ((64, 200, 64), False), ((3, 72, 72, 32), False),
+    ((17, 96, 96, 32), False), ((5, 31, 65, 7), False),
+    ((4, 95, 97, 1), False), ((4, 97, 95, 31), False),
+    ((3, 96, 96, 33), False), ((1000, 4100, 32), False),
+    ((16, 96, 96, 32), True), ((6, 95, 95, 32), True),
+    ((6, 97, 97, 32), True), ((4, 264, 264, 32), True),
+    ((2, 264, 264, 64), True), ((70_000, 12, 12, 32), True)])
+def test_hamming_kernel_matches_plain(cuda_device, shape, self_block):
+    """Odd sizes on both sides (edges guarded, not padded; 95 and 97 are
+    not multiples of the 16-row and 8-column mma tiles), word counts that
+    are not a multiple of the 8-word k slice (1, 5, 7, 31, 33) and 64,
+    batched blocks (P past 65,535), a 2-D block of several tiles each
+    way, and ``hamming_block(x, x)`` as the build calls it (one staging
+    for both operands)."""
     rng = np.random.default_rng(sum(shape))
     words = shape[-1]
     if len(shape) == 3:
@@ -336,8 +345,8 @@ def test_hamming_kernel_matches_plain(cuda_device, shape):
         a_shape, b_shape = (p, m, words), (p, n, words)
     a = as_sketches(rng.integers(0, 2**32, size=a_shape, dtype=np.uint32),
                     cuda_device)
-    b = as_sketches(rng.integers(0, 2**32, size=b_shape, dtype=np.uint32),
-                    cuda_device)
+    b = a if self_block else as_sketches(
+        rng.integers(0, 2**32, size=b_shape, dtype=np.uint32), cuda_device)
     launches = hamming_block.kernel_launches
     got = hamming_block(a, b)
     torch.cuda.synchronize()

@@ -4,12 +4,12 @@ against the JAX package on CPU tensors.
 * ``l2int`` (int32 squared L2): bit-exact (tolerance 0), both through the
   native host warmup and through the device chunks; the JAX builder runs
   its gather route (``HNSW_TPU_INLINE_BUILD_BYTES=0``).
-* ``l2`` (float32 squared L2): recall-equal. XLA and PyTorch sum float32
-  products in different orders, so distances differ in their last bits
-  and the two graphs may differ where a select or a prune compares such
-  near-equal distances. The test holds recall@10 within 0.01 of the JAX
-  index's on the same data and returned distances within ``rtol=1e-5``
-  of the exact ones.
+* ``l2`` (float32 squared L2): the same graph (every level's adj and deg)
+  and the same ``knns`` ids as JAX; XLA and PyTorch sum float32 products
+  in different orders, so returned distances may differ in their last
+  bits (``rtol=1e-5``). Recall@10 within 0.01 of the JAX index's on the
+  same data, and returned distances within ``rtol=1e-5`` of the exact
+  ones.
 * A registered custom metric (Chebyshev) end to end, through ``.npz``.
 * The oracle: ``l2int`` exact against JAX; ``l2`` distances within
   ``rtol=1e-5`` and ids equal where the row's k-th distance is not tied;
@@ -105,11 +105,30 @@ def test_l2int_sampled_entry_matches_jax():
         np.testing.assert_array_equal(g, w)
 
 
-def test_l2_hnsw_is_recall_equal_to_jax():
-    """Float summation order differs between XLA and PyTorch, so the
-    graphs may differ: recall within 0.01 and exact distances."""
+@pytest.fixture(scope="module")
+def l2_built():
+    """One ``l2`` build of each package on the same data: (pts, qs, JAX
+    builder, JAX index, port builder, port index)."""
     pts, qs = _l2_data(5)
-    _, jidx, pb, pidx = _build_both(pts, "l2", host_warmup=0)
+    return (pts, qs, *_build_both(pts, "l2", host_warmup=0))
+
+
+def test_l2_hnsw_graph_matches_jax(l2_built):
+    """Both packages prune ``l2`` rows on the direct difference and select
+    on the norm expansion, so the graphs are equal: every level's adj and
+    deg, entry point, level sizes, spill and edge drops. ``knns`` returns
+    the same ids; its distances, summed over D in XLA's order and in
+    PyTorch's, within ``RTOL``."""
+    _, qs, jb, jidx, pb, pidx = l2_built
+    assert_same_builder(pb, jb)
+    (pd, pi), (jd, ji) = _knns(pidx, qs), _knns(jidx, qs)
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_allclose(pd, jd, rtol=RTOL, atol=1e-6)
+
+
+def test_l2_hnsw_is_recall_equal_to_jax(l2_built):
+    """Recall within 0.01 of the JAX index's and exact distances."""
+    pts, qs, _, jidx, pb, pidx = l2_built
     assert pidx.points.dtype == torch.float32
     bf = Bruteforce("l2", device="cpu")
     bf.extend(pts)
