@@ -8,7 +8,9 @@ The JAX functions are pure and write with ``.at[...].set(..., mode="drop")``
 to an out-of-range row for the entries they skip. Here the mutations
 update ``adj`` and ``deg`` in place (a build holds one copy of its graph)
 and mask the skipped entries out instead of writing them anywhere; each
-function returns the graph it was given.
+function returns the graph it was given. Each boolean index makes the
+host wait for the card; it runs in a ``sync`` range
+(``utils/instrument.py`` ``masked``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .ops.metrics import HAMMING
 from .ops.select import select_neighbors, select_neighbors_points
+from .utils.instrument import masked, sync
 
 
 class GraphArrays(NamedTuple):
@@ -48,9 +51,9 @@ def set_rows(g: GraphArrays, ids: torch.Tensor,
     and their degrees; ``ids`` < 0 are skipped, ``rows`` entries < 0 are
     padding."""
     ok = ids >= 0
-    t = ids[ok].long()
-    g.adj[t] = rows[ok]
-    g.deg[t] = (rows[ok] >= 0).sum(dim=1, dtype=torch.int32)
+    t = masked(ids, ok).long()
+    g.adj[t] = masked(rows, ok)
+    g.deg[t] = (masked(rows, ok) >= 0).sum(dim=1, dtype=torch.int32)
     return g
 
 
@@ -85,9 +88,11 @@ def append_reverse_edges(g: GraphArrays, targets: torch.Tensor,
     pos = g.deg[t.clamp(0, cap - 1)].to(torch.int64) + idx - seg_start
     ok = (t < cap) & (pos < W)
     col = pos.clamp(0, W - 1)
-    g.adj[t[ok], col[ok]] = s[ok].to(torch.int32)
-    g.deg.index_add_(0, t[ok], torch.ones_like(t[ok], dtype=torch.int32))
-    incoming = torch.bincount(t, minlength=cap + 1).to(torch.int32)
+    g.adj[masked(t, ok), masked(col, ok)] = masked(s, ok).to(torch.int32)
+    g.deg.index_add_(0, masked(t, ok),
+                     torch.ones_like(masked(t, ok), dtype=torch.int32))
+    with sync():  # on a card, bincount reads t's minimum and maximum
+        incoming = torch.bincount(t, minlength=cap + 1).to(torch.int32)
     return AppendResult(g, t.to(torch.int32), s.to(torch.int32),
                         col.to(torch.int32), ok, incoming,
                         pos.to(torch.int32))
@@ -135,7 +140,7 @@ def prune_rows(g: GraphArrays, node_ids: torch.Tensor,
             (sel_rows.shape[0], W - m_max), -1, dtype=torch.int32,
             device=sel_rows.device)], dim=1)
     ok = node_ids >= 0
-    t = node_ids[ok].long()
-    g.adj[t] = sel_rows[ok]
-    g.deg[t] = n_sel[ok]
+    t = masked(node_ids, ok).long()
+    g.adj[t] = masked(sel_rows, ok)
+    g.deg[t] = masked(n_sel, ok)
     return g

@@ -42,12 +42,13 @@ How the port differs from the JAX module, keeping its results:
 pairs by phase name ("entry", "search", "select", "apply") when the
 tensors are on a card, recorded on the current stream of the tensors'
 card (not the caller's current device); ``span_ms`` sums them once every
-pair has completed.
+pair has completed. The phases, and each operation that makes the host
+wait for the card ("sync"), are also profiler ranges while a profiler
+records (``utils/instrument.py``, whose ``span`` and ``span_ms`` are this
+module's ``_span`` and ``span_ms``).
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
@@ -60,39 +61,13 @@ from ..ops.metrics import HAMMING, Hamming, as_points, popcount_sum
 from ..ops.mini_search import IINF
 from ..ops.search import batched_beam_search
 from ..ops.select import select_neighbors_points
+from ..utils.instrument import masked, sync
+from ..utils.instrument import span as _span
+from ..utils.instrument import span_ms  # noqa: F401 (callers read it here)
 
 # spill buffer width shared by every build path
 SPILL_WIDTH = 8
 MAX_STEPS = 2048  # the JAX search_select's default expansion bound
-
-
-@contextlib.contextmanager
-def _span(timings, name: str, device: torch.device):
-    """Record a CUDA event pair around the block into ``timings[name]``, on
-    the current stream of ``device`` (no-op without ``timings`` or off the
-    card)."""
-    if timings is None or device.type != "cuda":
-        yield
-        return
-    stream = torch.cuda.current_stream(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record(stream)
-    try:
-        yield
-    finally:
-        end.record(stream)
-        timings.setdefault(name, []).append((start, end))
-
-
-def span_ms(timings) -> dict:
-    """Milliseconds per phase of a ``timings`` dict: waits for each pair's
-    end event, on whichever card recorded it."""
-    for pairs in timings.values():
-        for _, end in pairs:
-            end.synchronize()
-    return {k: sum(s.elapsed_time(e) for s, e in v)
-            for k, v in timings.items()}
 
 
 def _rows(node_map, ids: torch.Tensor) -> torch.Tensor:
@@ -170,7 +145,8 @@ def _prune_order(over: torch.Tensor, budget: int) -> torch.Tensor:
     """``jax.lax.top_k(over, budget)`` restricted to positive entries: the
     ids of the ``budget`` largest positive values, descending, ties to the
     lower id (int32[P], P <= budget)."""
-    ids = torch.nonzero(over > 0).squeeze(1)
+    with sync():
+        ids = torch.nonzero(over > 0).squeeze(1)
     o = torch.sort(over[ids], descending=True, stable=True).indices
     return ids[o[:budget]].to(torch.int32)
 
@@ -228,8 +204,8 @@ def _apply_inserts(points, node_map, graph, new_ids, sel_rows, spill,
         spill_cnt = (spill >= 0).sum(dim=1, dtype=torch.int32)  # [cap+1]
         srank = res.pos - W + spill_cnt[res.targets.long().clamp(0, cap)]
         s_ok = spilled & (srank < X)
-        spill[res.targets[s_ok].long(), srank[s_ok].long()] = \
-            res.sources[s_ok]
+        spill[masked(res.targets, s_ok).long(),
+              masked(srank, s_ok).long()] = masked(res.sources, s_ok)
         spill_cnt = (spill >= 0).sum(dim=1, dtype=torch.int32)
         n_dropped = (spilled & ~s_ok).sum(dtype=torch.int32)
     else:
@@ -253,7 +229,8 @@ def _apply_inserts(points, node_map, graph, new_ids, sel_rows, spill,
         prune_rows(graph, prune_ids, node_pts, nbr_pts, W,
                    extra_ids=extra_ids, extra_pts=pts_of(extra_ids),
                    metric=metric)
-        spill[pl] = -1  # consumed: adopted or rejected on merit
+        with sync():  # the scalar reaches the card in a copy that waits
+            spill[pl] = -1  # consumed: adopted or rejected on merit
     else:
         prune_rows(graph, prune_ids, node_pts, nbr_pts, W, metric=metric)
     return graph, spill, n_dropped
@@ -345,7 +322,9 @@ def drain_spill(points, graph: GraphArrays, spill, opts, *,
     budget = min(opts.size, max(opts.prune_budget, opts.batch_size * 16))
     none = torch.empty((0,), dtype=torch.int32, device=spill.device)
     for _ in range(max_passes):
-        if not bool((spill[:-1] >= 0).any()):
+        with sync():
+            left = bool((spill[:-1] >= 0).any())
+        if not left:
             break
         apply_inserts(points, None, graph, none, none.reshape(0, 1), spill,
                       prune_budget=budget, timings=timings, metric=metric)

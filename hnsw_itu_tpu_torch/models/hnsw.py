@@ -52,6 +52,7 @@ from .. import native
 from ..graph import GraphArrays, make_graph
 from ..ops.metrics import as_points, get_metric
 from ..ops.search import greedy_search
+from ..utils.instrument import host_range, to_device
 from . import _build
 from .base import IndexOptions, rng_seed
 from .nsw import NSWBuilder, QueryIndex
@@ -263,7 +264,12 @@ class HNSWBuilder:
         and the base inserts are deferred and run in id order as G chunk
         steps (the JAX scanned dispatch, as a loop). ``progress`` is called
         with the running row count after the warmup and after every
-        group."""
+        group. The whole call is the profiler range "extend"
+        (``utils/instrument.py``)."""
+        with host_range("extend"):
+            self._extend_batched(points, progress)
+
+    def _extend_batched(self, points, progress) -> None:
         pts = _build.host_points(points)
         self._ensure_points(pts)
         off = self._host_warmup(pts)
@@ -308,7 +314,8 @@ class HNSWBuilder:
                 order = np.argsort(mids, kind="stable")
                 self._insert_base_grouped(
                     mids[order],
-                    meps[torch.from_numpy(order).to(self.device)], c)
+                    meps[to_device(torch.from_numpy(order), self.device)],
+                    c)
             off += G * c
             i += G
             if progress:
@@ -349,14 +356,14 @@ class HNSWBuilder:
         )
         dev = self.device
         self.points = as_points(pts_np, dev)
-        self.base = GraphArrays(torch.from_numpy(adj_np).to(dev),
-                                torch.from_numpy(deg_np).to(dev))
+        self.base = GraphArrays(to_device(torch.from_numpy(adj_np), dev),
+                                to_device(torch.from_numpy(deg_np), dev))
         off = 0
         for l in range(ml):
             if level_ns[l] <= 0:
                 break
             sl = slice(off, off + caps[l])
-            t = [torch.from_numpy(a[sl]).to(dev)
+            t = [to_device(torch.from_numpy(a[sl]), dev)
                  for a in (lvl_node_ids, lvl_down, lvl_adj, lvl_deg)]
             self.levels.append(Level(t[0], t[1], GraphArrays(t[2], t[3])))
             self.level_ns.append(int(level_ns[l]))
@@ -455,14 +462,15 @@ class HNSWBuilder:
             lv = self.levels[l]
             loc = nl + np.arange(cpad, dtype=np.int32)
             below = ids_pad if l == 0 else slots[l - 1]
-            lv.node_ids[nl : nl + cpad] = torch.from_numpy(ids_pad).to(dev)
-            lv.down[nl : nl + cpad] = torch.from_numpy(below).to(dev)
+            lv.node_ids[nl : nl + cpad] = to_device(
+                torch.from_numpy(ids_pad), dev)
+            lv.down[nl : nl + cpad] = to_device(torch.from_numpy(below), dev)
             self.level_ns[l] = nl + c
             slots.append(loc)
         if new_ep:
             self.ep = int(slots[-1][0])
 
-        ids_t = torch.from_numpy(base_ids).to(dev)
+        ids_t = to_device(torch.from_numpy(base_ids), dev)
         q = self.points[ids_t.long()]
         n0 = int(base_ids[0])
         # level-0 points take the sampled entry and skip the descent
@@ -479,7 +487,7 @@ class HNSWBuilder:
         # insert top-down; a brand-new layer holds only this group: enter
         # at its first slot and leave the old layers' entry chain alone
         for l in range(level - 1, -1, -1):
-            loc = torch.from_numpy(slots[l][:c]).to(dev)
+            loc = to_device(torch.from_numpy(slots[l][:c]), dev)
             if l >= L_old:
                 self._insert_level(l, q, loc,
                                    torch.full_like(loc, int(slots[l][0])),
@@ -526,7 +534,7 @@ class HNSWBuilder:
             raise AssertionError(f"grouped base insert expects whole chunks: "
                                  f"{n_all} rows vs chunk size {c}")
         n0 = int(base_ids[0])
-        ids_t = torch.from_numpy(base_ids).to(self.device)
+        ids_t = to_device(torch.from_numpy(base_ids), self.device)
         for s in range(0, n_all, c):
             ids = ids_t[s : s + c]
             self.base, self.spill, dropped = _build.chunk_step(

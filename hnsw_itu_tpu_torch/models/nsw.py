@@ -46,6 +46,7 @@ from ..ops.reorder import (bfs_order, full_permutation, permute_base,
                            window_shuffle)
 from ..ops.search import batched_beam_search
 from ..ops.topk import inverse_permutation
+from ..utils.instrument import host_range, span, to_device
 from . import _build
 from .base import ID_INF, IndexOptions, KnnResult, LazyStats, search_one
 
@@ -179,14 +180,15 @@ def _mini_config_for(points: torch.Tensor, adj: torch.Tensor, metric,
 def _query_step_mini(points: torch.Tensor, mini: torch.Tensor,
                      qs: torch.Tensor, eps: torch.Tensor, *, k: int,
                      ef: int, max_steps: int, adj: torch.Tensor | None = None,
-                     hop: int = 0, tie_bits: int = 0):
+                     hop: int = 0, tie_bits: int = 0, timings=None):
     """Prefix entry distances of every seed, the queries sorted by their
     nearest seed, the estimated-distance beam in one kernel, then an exact
     rerank of the whole final beam (``rerank_onehop`` seeded by the
-    ``hop`` exact-best ids when ``hop > 0`` and ``adj`` is given), then
-    un-permute. ``eps`` are int32[B] or [B, E] distinct seed ids. Returns
-    (dists int32[B, k], ids int32[B, k], visited int32[B], steps
-    int32[B])."""
+    ``hop`` exact-best ids when ``hop > 0`` and ``adj`` is given; the span
+    "knns.rerank", ``timings``: CUDA event pairs by span,
+    ``utils/instrument.py``), then un-permute. ``eps`` are int32[B] or
+    [B, E] distinct seed ids. Returns (dists int32[B, k], ids int32[B, k],
+    visited int32[B], steps int32[B])."""
     mw = mini.shape[2] - 1
     eps = eps[:, None] if eps.dim() == 1 else eps
     # PREFIX distances of every seed: the kernel ranks on estimates
@@ -199,10 +201,11 @@ def _query_step_mini(points: torch.Tensor, mini: torch.Tensor,
         mini, qs, d0[order], eps[order], ef=max(ef, k), mini_words=mw,
         max_steps=max_steps, tie_bits=tie_bits,
     )
-    if hop > 0 and adj is not None:
-        dk, ik = rerank_onehop(points, adj, qs, ids, k=k, seeds=hop)
-    else:
-        dk, ik = rerank_exact(points, qs, ids, k=k)
+    with span(timings, "knns.rerank", qs.device):
+        if hop > 0 and adj is not None:
+            dk, ik = rerank_onehop(points, adj, qs, ids, k=k, seeds=hop)
+        else:
+            dk, ik = rerank_exact(points, qs, ids, k=k)
     valid = ik < IINF
     d = torch.where(valid, dk, ID_INF)[inv]
     i = torch.where(valid, ik, ID_INF)[inv]
@@ -217,6 +220,7 @@ class QueryIndex:
     the entries used without a sampled entry (``_walk_entries``)."""
 
     def _init_query_state(self) -> None:
+        self.timings = None  # dict: CUDA event pairs by span (knns.*)
         self.query_expand = 1  # >1: the general route, E-way expansion
         self.query_batch = 1024
         self.query_dedup = "bitmask"  # the general route's dedup
@@ -347,38 +351,46 @@ class QueryIndex:
     def knns(self, queries, k: int, ef: int) -> KnnResult:
         """k nearest neighbors of every query: the entries, then the
         base-layer search at beam width max(ef, k) on the route ``route``
-        picks."""
+        picks. Spans (``utils/instrument.py``): the profiler range "knns"
+        around the call; "knns.entry" each query batch's entries and, on
+        the mini route, "knns.rerank" its rerank (CUDA event pairs in
+        ``timings``)."""
         if self.ep is None:
             raise ValueError("empty index")
-        qs = as_points(queries, self.device)
-        nq = qs.shape[0]
-        route = self.route(k, ef)
-        steps = self._steps_cap(ef)
-        out = []
-        for s in range(0, nq, self.query_batch):
-            q = qs[s : s + self.query_batch]
-            if route == "fused":
-                out.append(_query_step_fused(
-                    self.points, self.fused, q, self._entries(q, steps),
-                    k=k, ef=ef, max_steps=steps))
-            elif route == "mini":
-                out.append(_query_step_mini(
-                    self.points, self.mini, q,
-                    self._entries(q, steps, self.query_entry_beams), k=k,
-                    ef=ef, max_steps=steps, adj=self._base().adj,
-                    hop=self.query_hop, tie_bits=self._tie_bits()))
-            else:
-                out.append(self._query_step_general(
-                    q, self._entries(q, steps), k=k, ef=ef,
-                    max_steps=steps))
-        d, i, vis, st = (xs[0] if len(xs) == 1 else torch.cat(xs)
-                         for xs in zip(*out))
-        self.last_stats = LazyStats(vis, st, nq)
-        self.last_route = route
-        if self.id_map is not None:  # reordered index: original ids out
-            mapped = self.id_map[i.clamp(0, self.id_map.shape[0] - 1).long()]
-            i = torch.where(i == ID_INF, i, mapped)
-        return KnnResult(d, i)
+        t, dev = self.timings, self.device
+        with host_range("knns"):
+            qs = as_points(queries, dev)
+            nq = qs.shape[0]
+            route = self.route(k, ef)
+            steps = self._steps_cap(ef)
+            beams = self.query_entry_beams if route == "mini" else 1
+            out = []
+            for s in range(0, nq, self.query_batch):
+                q = qs[s : s + self.query_batch]
+                with span(t, "knns.entry", dev):
+                    eps = self._entries(q, steps, beams)
+                if route == "fused":
+                    out.append(_query_step_fused(
+                        self.points, self.fused, q, eps, k=k, ef=ef,
+                        max_steps=steps))
+                elif route == "mini":
+                    out.append(_query_step_mini(
+                        self.points, self.mini, q, eps, k=k, ef=ef,
+                        max_steps=steps, adj=self._base().adj,
+                        hop=self.query_hop, tie_bits=self._tie_bits(),
+                        timings=t))
+                else:
+                    out.append(self._query_step_general(
+                        q, eps, k=k, ef=ef, max_steps=steps))
+            d, i, vis, st = (xs[0] if len(xs) == 1 else torch.cat(xs)
+                             for xs in zip(*out))
+            self.last_stats = LazyStats(vis, st, nq)
+            self.last_route = route
+            if self.id_map is not None:  # reordered index: original ids out
+                top = self.id_map.shape[0] - 1
+                mapped = self.id_map[i.clamp(0, top).long()]
+                i = torch.where(i == ID_INF, i, mapped)
+            return KnnResult(d, i)
 
     def _query_step_general(self, q, eps, *, k: int, ef: int,
                             max_steps: int):
@@ -505,7 +517,12 @@ class NSWBuilder:
         points, then progressive chunks on the device; a scanned group of
         G steady-state chunks runs as G chunk steps. ``progress`` is
         called with the running row count after the warmup and after
-        every group."""
+        every group. The whole call is the profiler range "extend"
+        (``utils/instrument.py``)."""
+        with host_range("extend"):
+            self._extend_batched(points, progress)
+
+    def _extend_batched(self, points, progress) -> None:
         pts = _build.host_points(points)
         self._ensure_points(pts)
         off = self._host_warmup(pts)
@@ -550,8 +567,8 @@ class NSWBuilder:
                           efc=self.opts.ef_construction, ep=0)
         dev = self.device
         self.points = as_points(pts_np, dev)
-        self.graph = GraphArrays(torch.from_numpy(adj_np).to(dev),
-                                 torch.from_numpy(deg_np).to(dev))
+        self.graph = GraphArrays(to_device(torch.from_numpy(adj_np), dev),
+                                 to_device(torch.from_numpy(deg_np), dev))
         self.ep = 0
         self.n = warm
         return warm

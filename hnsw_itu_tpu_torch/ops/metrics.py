@@ -36,6 +36,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.instrument import to_device
+
 _M1 = 0x55555555
 _M2 = 0x33333333
 _M4 = 0x0F0F0F0F
@@ -47,11 +49,11 @@ def as_sketches(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         if x.dtype != torch.int32:
             raise TypeError(f"sketch tensors are int32, got {x.dtype}")
-        return x.to(device)
+        return to_device(x, device)
     a = np.ascontiguousarray(x)
     if a.dtype not in (np.uint32, np.int32):
         raise TypeError(f"sketch arrays are uint32 or int32, got {a.dtype}")
-    return torch.from_numpy(a.view(np.int32)).to(device)
+    return to_device(torch.from_numpy(a.view(np.int32)), device)
 
 
 def as_points(x, device) -> torch.Tensor:
@@ -60,7 +62,7 @@ def as_points(x, device) -> torch.Tensor:
     integers int32 and floats float32 (the dtypes the JAX package holds
     with 64-bit types off)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return to_device(x, device)
     a = np.ascontiguousarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -70,7 +72,7 @@ def as_points(x, device) -> torch.Tensor:
         a = a.astype(np.float32)
     else:
         raise TypeError(f"points of dtype {a.dtype} are not supported")
-    return torch.from_numpy(a).to(device)
+    return to_device(torch.from_numpy(a), device)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

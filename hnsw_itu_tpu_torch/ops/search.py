@@ -52,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.instrument import masked, sync
 from .metrics import popcount_sum
 
 
@@ -350,22 +351,28 @@ def _run(state: dict, live_fn, step_fn, max_steps: int,
     ``step_fn(state)`` advances every row of ``state`` once. A query
     leaves the working set (its ``outputs`` rows are written out) when it
     stops, so later steps touch only the queries still running. Every
-    value of ``state`` is a tensor with the batch as dimension 0."""
+    value of ``state`` is a tensor with the batch as dimension 0. Each
+    step's tests and boolean indexes make the host wait for the card, in
+    ``sync`` ranges (``utils/instrument.py``)."""
     q = state["q"]
     out = {k: torch.empty_like(state[k]) for k in outputs}
     act = torch.arange(q.shape[0], device=q.device)
     for step in range(max_steps + 1):
         live = live_fn(state) if step < max_steps else \
             torch.zeros_like(act, dtype=torch.bool)
-        if not bool(live.all()):
+        with sync():
+            done = not bool(live.all())
+        if done:
             fin = ~live
-            rows = act[fin]
+            rows = masked(act, fin)
             for k in outputs:
-                out[k][rows] = state[k][fin]
-            if not bool(live.any()):
+                out[k][rows] = masked(state[k], fin)
+            with sync():
+                stop = not bool(live.any())
+            if stop:
                 break
-            state = {k: v[live] for k, v in state.items()}
-            act = act[live]
+            state = {k: masked(v, live) for k, v in state.items()}
+            act = masked(act, live)
         step_fn(state)
         state["steps"] += 1
     return out

@@ -66,6 +66,7 @@ from ..ops.entry import sampled_entry
 from ..ops.fused_search import MAX_EF, materialize_fused
 from ..ops.metrics import as_points, get_metric
 from ..ops.search import _sort2, batched_beam_search
+from ..utils.instrument import to_device
 from .mesh import CardPool, Mesh, make_mesh, replicate, shard_leading
 
 
@@ -94,7 +95,7 @@ def _insert_rows(points, adj, deg, spill, ep: int, n: int, chunk, rows, *,
     dev = adj.device
     if len(rows) == 0:
         return n, torch.zeros((), dtype=torch.int32, device=dev)
-    r = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+    r = to_device(torch.from_numpy(np.asarray(rows, np.int64)), dev)
     qs, new_ids = chunk[r], (r + n).to(torch.int32)
     eps = torch.full((len(rows),), ep, dtype=torch.int32, device=dev)
     sel, _ = _build.search_select(points, None, adj, qs, eps, efc=efc, m=m,
