@@ -12,7 +12,7 @@ Run from the root of a checkout. Phases 1-18 run by default, on card 0;
 cards. Phases, each printed as it ends:
 
   1. card and build: nvidia-smi's name and power limit, torch and CUDA
-     versions, and the four kernels compiled by nvcc from
+     versions, and the five kernels compiled by nvcc from
      hnsw_itu_tpu_torch/csrc/ for sm_90a (one nvcc each, in parallel),
      with ptxas's register and spill lines for every instance, and the
      three beam kernels' resident warps per SM;
@@ -57,7 +57,8 @@ cards. Phases, each printed as it ends:
      query at ef=32 and ef=96, and with 4 seeds and tie_bits; both timed,
      its resident warps, both byte counts of its bound (whole rows, and
      ids first, the read it does), the ef sweep (32 to 128 at 32 steps),
-     and the exact rerank timed apart;
+     and the exact rerank kernel held to its plain version on every
+     query, both timed apart beside its bound;
   9. the device build, with the mini index freed: make_dataset(0,
      build_n, nq) and HNSWBuilder.extend_batched at the JAX bench's options
      (efc=96, m=24, M=64, batch_size 256, a 50k native host warmup, then
@@ -157,7 +158,9 @@ cards. Phases, each printed as it ends:
      points and the JAX record's point (ef 64, hop 8, es 65,536) at k=10
      over every query in batches of 8192, best of 3, each with recall@10,
      tie-tolerant recall, launches (plain calls 0) and the entry, mini
-     kernel (with its bound) and rerank timed apart; recall@10 >= 0.93 at
+     kernel (with its bound) and the rerank kernel (held to its plain
+     version on every query, with its bound and the plain version's time)
+     timed apart; recall@10 >= 0.93 at
      the best point, where the mini kernel is held to its plain version on
      every query; then, the policy's table freed, the table of the JAX
      package's default budget (1.1e10 bytes: W=32, mini_words=7) at the
@@ -414,6 +417,84 @@ def device_breakdown(fn, calls: int = 3, top: int = 6):
 def bound_ms(nbytes: int) -> float:
     """Least time for ``nbytes`` of device-memory traffic at HBM's rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def rerank_bytes(points, adj, qs, beam, *, k, seeds):
+    """Bytes the exact rerank needs (csrc/exact_rerank.cu), two counts:
+    by shape (each query, every slot's id and row, the seeds' whole
+    adjacency rows and every entry's row, the answer's (d, id) pairs out)
+    and the least (each input byte once: the queries, the ids, the
+    distinct adjacency rows of valid seeds and the distinct rows of valid
+    ids among the beams and those rows, the answer out)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.mini_search import (IINF,
+                                                    rerank_exact_plain)
+
+    (B, H), (cap, words) = beam.shape, points.shape
+    row = words * 4
+    S = min(seeds, H)
+    W = adj.shape[1] if S else 0
+    kout = min(k, H + S * W) if S else min(k, H)
+    shape = B * (row + H * (4 + row) + S * W * (4 + row) + kout * 8)
+    ids = beam.reshape(-1)
+    least = B * (row + H * 4 + kout * 8)
+    if S:
+        sid = rerank_exact_plain(points, qs, beam, k=H)[1][:, :S]
+        sid = torch.unique(sid[sid < IINF])
+        least += sid.numel() * W * 4
+        ids = torch.cat([ids, adj[sid.long()].reshape(-1)])
+    ids = torch.unique(ids[(ids >= 0) & (ids < cap)])
+    return shape, least + ids.numel() * row
+
+
+def rerank_vs_plain(points, adj, qs, beam, *, k, seeds, smi, tag):
+    """The mini route's rerank at these shapes (``rerank_onehop`` with
+    ``seeds``, else ``rerank_exact``): its kernel against its plain
+    version, bit-exact on every query (raises otherwise), one kernel
+    launch and no plain call; then both timed by CUDA events beside the
+    kernel's bound. Returns {"ms", "plain_ms", "bound_ms"}."""
+    from hnsw_itu_tpu_torch.ops.mini_search import (rerank_exact,
+                                                    rerank_exact_plain,
+                                                    rerank_onehop,
+                                                    rerank_onehop_plain)
+
+    if seeds:
+        fn = rerank_onehop
+
+        def kernel():
+            return rerank_onehop(points, adj, qs, beam, k=k, seeds=seeds)
+
+        def plain():
+            return rerank_onehop_plain(points, adj, qs, beam, k=k,
+                                       seeds=seeds)
+    else:
+        fn = rerank_exact
+
+        def kernel():
+            return rerank_exact(points, qs, beam, k=k)
+
+        def plain():
+            return rerank_exact_plain(points, qs, beam, k=k)
+
+    before = (fn.kernel_launches, fn.plain_calls)
+    got, want = kernel(), plain()
+    if (fn.kernel_launches, fn.plain_calls) != (before[0] + 1, before[1]):
+        raise AssertionError(f"[{tag}] rerank kernel not launched once")
+    if [g.shape for g in got] != [w.shape for w in want] \
+            or max_abs_diff(got, want):
+        raise AssertionError(f"[{tag}] rerank kernel != plain version")
+    B, H = beam.shape
+    shape, least = rerank_bytes(points, adj, qs, beam, k=k, seeds=seeds)
+    out = {"ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, 3),
+           "bound_ms": bound_ms(least), "bound_by_shape_ms": bound_ms(shape)}
+    log(f"[{tag}] on {smi}: {fn.__name__} of {B} beams of {H} (seeds "
+        f"{seeds}, k {k}): kernel equal to the plain version on every "
+        f"query; kernel {out['ms']:.3f} ms, bound {out['bound_ms']:.3f} ms "
+        f"({least / 1e9:.3f} GB, each input byte once; by shape "
+        f"{shape / 1e9:.3f} GB = {out['bound_by_shape_ms']:.3f} ms), plain "
+        f"version {out['plain_ms']:.3f} ms")
+    return out
 
 
 def phase_card():
@@ -1026,8 +1107,7 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
     from hnsw_itu_tpu_torch.ops import _kernels
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.ops.mini_search import (mini_beam_search,
-                                                    mini_beam_search_plain,
-                                                    rerank_exact)
+                                                    mini_beam_search_plain)
 
     table, W, mw = index.mini, index.mini_W, index.mini_words
     B = len(qs)
@@ -1074,12 +1154,9 @@ def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
             f"{whole / 1e9:.3f} GB = {bound_ms(whole):.3f} ms, ids-first "
             f"count {by_ids / 1e9:.3f} GB = {bound_ms(by_ids):.3f} ms at "
             f"{HBM_BYTES_PER_S / 1e12} TB/s; bound {b_ms:.3f} ms")
-        if ef == EF:
-            ids = got[1]
-            r_ms = cuda_ms(lambda: rerank_exact(index.points, qs_o, ids,
-                                                k=K), 10)
-            log(f"[8] exact rerank of the ef={ef} beam (_query_step_mini's "
-                f"rerank_exact): {r_ms:.3f} ms")
+        if ef == EF:  # _query_step_mini's rerank_exact of this beam
+            out["rerank"] = rerank_vs_plain(index.points, None, qs_o, got[1],
+                                            k=K, seeds=0, smi=smi, tag="8")
     sweep = []
     for ef in SWEEP_EFS:
         st = {}
@@ -2590,19 +2667,25 @@ def flagship_point(index, q, gt_i, gt_d, smi, point, tag):
                                                     rerank_onehop)
     from hnsw_itu_tpu_torch.utils import recall_at_k, recall_tie_tolerant
 
+    rerank = rerank_onehop if point[1] else rerank_exact
+
     ef, hop, es, cap = point
     index.query_hop, index.query_entry_sample, index.max_steps = hop, es, cap
     nq, steps = q.shape[0], index._steps_cap(ef)
     table, W, mw = index.mini, index.mini_W, index.mini_words
     # the main path: knns on the mini route, counts zeroed just before
-    mini_beam_search.kernel_launches = mini_beam_search.plain_calls = 0
+    for f in (mini_beam_search, rerank):
+        f.kernel_launches = f.plain_calls = 0
     best, res = best_of_3(lambda: index.knns(q, K, ef))
     launches = mini_beam_search.kernel_launches
-    plain = mini_beam_search.plain_calls
+    plain = mini_beam_search.plain_calls + rerank.plain_calls
     calls = 4 * -(-nq // index.query_batch)  # best_of_3: a warm call + 3
-    if index.last_route != "mini" or launches != calls or plain:
+    if index.last_route != "mini" or launches != calls \
+            or rerank.kernel_launches != calls or plain:
         raise AssertionError(f"[{tag}] {point}: route {index.last_route}, "
-                             f"launches {launches}, plain calls {plain}")
+                             f"launches {launches} and "
+                             f"{rerank.kernel_launches}, plain calls "
+                             f"{plain}")
     ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
     if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
             or not (np.diff(dists, axis=1) >= 0).all():
@@ -2622,16 +2705,16 @@ def flagship_point(index, q, gt_i, gt_d, smi, point, tag):
     b_ms = bound_ms(mini_ids_first_bytes(
         int(stp.long().sum()), int(vis.long().sum()) - nq, nq, W, mw,
         kw["ef"]))
-    if hop:
-        r_ms = cuda_ms(lambda: rerank_onehop(pts, adj, qs_o, beam, k=K,
-                                             seeds=hop), 3)
-    else:
-        r_ms = cuda_ms(lambda: rerank_exact(pts, qs_o, beam, k=K), 3)
+    r = rerank_vs_plain(pts, adj, qs_o, beam, k=K, seeds=hop, smi=smi,
+                        tag=tag)
+    r_ms = r["ms"]
     out = {"ef": ef, "hop": hop, "entry_sample": es, "max_steps": steps,
            "knns_ms": best * 1e3, "qps": nq / best, "recall": rec,
            "tie_tolerant": rtt, "visited_q": vis_q, "steps_q": steps_q,
            "launches": launches, "plain_calls": plain, "entry_ms": entry_ms,
-           "ms": k_ms, "bound_ms": b_ms, "rerank_ms": r_ms}
+           "ms": k_ms, "bound_ms": b_ms, "rerank_ms": r_ms,
+           "rerank_plain_ms": r["plain_ms"],
+           "rerank_bound_ms": r["bound_ms"]}
     log(f"[{tag}] on {smi}: ef={ef} hop={hop} es={es} max_steps={steps}: "
         f"route {index.last_route}, best of 3 {best * 1e3:.2f} ms for {nq} "
         f"queries = {nq / best:,.0f} QPS, recall@10 {rec:.4f} (tie-tolerant "
@@ -3829,6 +3912,7 @@ def main(argv=None) -> int:
         "ef32": mini[EF],
         "ef96": mini[MINI_EFS[1]],
         "ef32_tie_bits_ms": mini["tie_bits_ms"],  # unreordered, bitrev
+        "rerank_exact_kernel": mini["rerank"],  # csrc/exact_rerank.cu
         "sweep": mini_sweep,
         "knns": {str(ef): v for ef, v in mini_q.items()},
         # phase 15: the reordered 2.2M copy at bit-reversed tie order

@@ -136,6 +136,9 @@ _ENTRIES = {
                         [_P, _I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _P]
                         + [_I] * 3 + [_P]),
     "hamming_block": ("hnsw_hamming_block", [_P] * 3 + [_I] * 4 + [_P]),
+    "exact_rerank": ("hnsw_exact_rerank",
+                     [_P, _I, _I, _P, _P, _I, _I, _P] + [_I] * 4
+                     + [_P] * 3),
 }
 KERNELS = tuple(_ENTRIES)
 # the beam kernels also export hnsw_<name>_warps(ef, W): the resident warps
@@ -271,3 +274,24 @@ def launch_hamming_block(a, b, out) -> None:
                                     out.data_ptr(), P, M, b.shape[-2], words,
                                     stream)
     _check_rc(lib, rc, "hamming_block")
+
+
+def launch_exact_rerank(points, queries, cand_ids, adj, out_d, out_i, *,
+                        seeds: int, dedup: bool) -> None:
+    """Launch the exact rerank kernel on the current stream of the
+    queries' device: ``out_d`` / ``out_i`` int32[B, kout]; ``adj`` is read
+    only when ``seeds`` > 0 (then <= H). The caller has checked dtypes,
+    shapes and contiguity."""
+    lib = _load("exact_rerank")
+    dev = queries.device
+    B, H = cand_ids.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hnsw_exact_rerank(
+            points.data_ptr(), points.shape[0], points.shape[1],
+            queries.data_ptr(), cand_ids.data_ptr(), B, H,
+            None if adj is None else adj.data_ptr(),
+            0 if adj is None else adj.shape[1], seeds, int(dedup),
+            out_d.shape[1], out_d.data_ptr(), out_i.data_ptr(), stream,
+        )
+    _check_rc(lib, rc, "exact_rerank")

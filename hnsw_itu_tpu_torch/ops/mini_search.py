@@ -31,8 +31,10 @@ output.
 tensors and runs the plain version (``ops/search.py``
 ``beam_search_two_plane``) for CPU tensors; any other device raises.
 ``mini_beam_search.kernel_launches`` and ``mini_beam_search.plain_calls``
-count the two routes. The reranks are plain PyTorch, as they are XLA code
-in the JAX package.
+count the two routes. The reranks ``rerank_exact`` and ``rerank_onehop``
+(XLA code in the JAX package) route the same way: ``csrc/exact_rerank.cu``
+for CUDA tensors, ``rerank_exact_plain`` / ``rerank_onehop_plain`` for CPU
+tensors, with the same two counters.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from .topk import sort_by_dist
 
 LANES = 128  # lanes of a row of the JAX package's table layout
 MAX_EF = 128  # largest beam the kernel holds
+MAX_RERANK_K = 2048  # widest one-hop answer the rerank kernel holds
 DINF = 0x7FFF0000  # > any Hamming distance, headroom for compares
 IINF = 0x7FFFFFFF
 KEY_INF = (DINF << 32) | IINF  # the empty beam slot as an int64 key
@@ -236,12 +239,11 @@ def _drop_repeated_ids(d, ids):
     return torch.where(dup, DINF, d), torch.where(dup, IINF, ids)
 
 
-def rerank_exact(points: torch.Tensor, queries: torch.Tensor,
-                 cand_ids: torch.Tensor, *, k: int, dedup: bool = False):
-    """Exact rerank of the search's candidates int32[B, H]: full-sketch
-    Hamming distances, ascending (d, id), the first k. ``dedup`` drops
-    repeated ids (keeping the best copy) first. Invalid slots come out as
-    (DINF, IINF)."""
+def rerank_exact_plain(points: torch.Tensor, queries: torch.Tensor,
+                       cand_ids: torch.Tensor, *, k: int,
+                       dedup: bool = False):
+    """The plain PyTorch route of ``rerank_exact`` on any device (the CPU
+    route, and the yardstick the kernel is held to on the card)."""
     d, ids = _exact(points, queries, cand_ids)
     if dedup:
         d, ids = _drop_repeated_ids(d, ids)
@@ -249,15 +251,13 @@ def rerank_exact(points: torch.Tensor, queries: torch.Tensor,
     return d[:, :k], ids[:, :k]
 
 
-def rerank_onehop(points: torch.Tensor, adj: torch.Tensor,
-                  queries: torch.Tensor, cand_ids: torch.Tensor, *, k: int,
-                  seeds: int):
-    """One-hop exact rerank: exact-rank the candidates, take the ``seeds``
-    best, add their full adjacency rows to the pool, drop repeated ids and
-    return the exact top-k of the union."""
+def rerank_onehop_plain(points: torch.Tensor, adj: torch.Tensor,
+                        queries: torch.Tensor, cand_ids: torch.Tensor, *,
+                        k: int, seeds: int):
+    """The plain PyTorch route of ``rerank_onehop`` on any device."""
     B, H = cand_ids.shape
     cap = points.shape[0]
-    bd, bi = rerank_exact(points, queries, cand_ids, k=H)
+    bd, bi = rerank_exact_plain(points, queries, cand_ids, k=H)
     seed_ids = bi[:, :seeds]
     ok = (seed_ids >= 0) & (seed_ids < cap)
     rows = adj[seed_ids.long().clamp(0, cap - 1)]  # [B, seeds, W]
@@ -267,3 +267,98 @@ def rerank_onehop(points: torch.Tensor, adj: torch.Tensor,
                                 torch.cat([bi, hi], dim=1))
     d, ids = sort_by_dist(d, ids)
     return d[:, :k], ids[:, :k]
+
+
+def _check_rerank(points, queries, cand_ids, adj, k, seeds) -> str:
+    """Checks both routes share; returns the device type that serves."""
+    dev = queries.device
+    named = (("points", points), ("queries", queries),
+             ("cand_ids", cand_ids)) + ((("adj", adj),) if adj is not None
+                                        else ())
+    for name, t in named:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, queries on {dev}")
+    if k < 0 or seeds < 0:
+        raise ValueError(f"k={k} and seeds={seeds} must be >= 0")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no exact rerank for {dev}")
+    return dev.type
+
+
+def _rerank_kernel(points, queries, cand_ids, adj, *, k, seeds, dedup):
+    """Shapes checked, outputs allocated, ``csrc/exact_rerank.cu``
+    launched: (d, ids) int32[B, min(k, pool)], the pool the H candidates
+    and, with ``seeds``, the ``min(seeds, H)`` seeds' adjacency rows."""
+    if points.dim() != 2 or not points.is_contiguous():
+        raise ValueError("points must be a contiguous int32[cap, words]")
+    if queries.dim() != 2 or queries.shape[1] != points.shape[1]:
+        raise ValueError(f"queries must be int32[B, {points.shape[1]}]")
+    if cand_ids.dim() != 2 or cand_ids.shape[0] != queries.shape[0]:
+        raise ValueError("cand_ids must be int32[B, H], one row a query")
+    B, H = cand_ids.shape
+    if H > MAX_EF:
+        raise ValueError(f"{H} candidates a query > {MAX_EF}")
+    seeds = min(seeds, H)
+    pool = H
+    if seeds:
+        if adj.dim() != 2 or not adj.is_contiguous() \
+                or adj.shape[0] < points.shape[0]:
+            raise ValueError("adj must be a contiguous int32[>= cap, W]")
+        pool += seeds * adj.shape[1]
+    kout = min(k, pool)
+    if kout > MAX_RERANK_K:
+        raise ValueError(f"answer width {kout} > {MAX_RERANK_K}")
+    d = torch.empty((B, kout), dtype=torch.int32, device=queries.device)
+    i = torch.empty_like(d)
+    if d.numel():
+        _kernels.launch_exact_rerank(
+            points, queries.contiguous(), cand_ids.contiguous(),
+            adj if seeds else None, d, i, seeds=seeds, dedup=dedup)
+    return d, i
+
+
+def rerank_exact(points: torch.Tensor, queries: torch.Tensor,
+                 cand_ids: torch.Tensor, *, k: int, dedup: bool = False):
+    """Exact rerank of the search's candidates int32[B, H]: full-sketch
+    Hamming distances, ascending (d, id), the first k. ``dedup`` drops
+    repeated ids (keeping the best copy) first. Invalid slots come out as
+    (DINF, IINF). CPU tensors take ``rerank_exact_plain``, CUDA tensors
+    the kernel (H <= ``MAX_EF``)."""
+    if _check_rerank(points, queries, cand_ids, None, k, 0) == "cpu":
+        _kernels.count(rerank_exact, "plain_calls")
+        return rerank_exact_plain(points, queries, cand_ids, k=k,
+                                  dedup=dedup)
+    out = _rerank_kernel(points, queries, cand_ids, None, k=k, seeds=0,
+                         dedup=dedup)
+    if out[0].numel():
+        _kernels.count(rerank_exact, "kernel_launches")
+    return out
+
+
+rerank_exact.kernel_launches = 0
+rerank_exact.plain_calls = 0
+
+
+def rerank_onehop(points: torch.Tensor, adj: torch.Tensor,
+                  queries: torch.Tensor, cand_ids: torch.Tensor, *, k: int,
+                  seeds: int):
+    """One-hop exact rerank: exact-rank the candidates, take the ``seeds``
+    best, add their full adjacency rows to the pool, drop repeated ids and
+    return the exact top-k of the union. CPU tensors take
+    ``rerank_onehop_plain``, CUDA tensors the kernel (H <= ``MAX_EF``, an
+    answer at most ``MAX_RERANK_K`` wide)."""
+    if _check_rerank(points, queries, cand_ids, adj, k, seeds) == "cpu":
+        _kernels.count(rerank_onehop, "plain_calls")
+        return rerank_onehop_plain(points, adj, queries, cand_ids, k=k,
+                                   seeds=seeds)
+    out = _rerank_kernel(points, queries, cand_ids, adj, k=k, seeds=seeds,
+                         dedup=True)
+    if out[0].numel():
+        _kernels.count(rerank_onehop, "kernel_launches")
+    return out
+
+
+rerank_onehop.kernel_launches = 0
+rerank_onehop.plain_calls = 0

@@ -5,7 +5,10 @@ the other sketch widths and its edge cases (full, narrow, one-id and
 re-sketched rows, keys at the clamp of id_bits 25 and 30, ids at
 2^id_bits - 1, ef 1 and 128, max_steps 0);
 the mini kernel (d, ids, visited, steps) at beam capacity 64 and 128, with
-several seeds, with tie_bits, and on a table past 2^21 rows; the gather
+several seeds, with tie_bits, and on a table past 2^21 rows; the exact
+rerank kernel under both reranks (d, ids) on ties, repeats, invalid ids,
+seeds past the beam and answers past the pool, at the 10M cell's shapes,
+and under knns on the mini route against the same index on CPU; the gather
 beam search (keys, visited, steps) across W, ef, seeds, a node map and
 repeated ids; both beam kernels on the edges of their id set, slots and
 merge (W = 128 and 24, rows that are all fresh or one id throughout, ids
@@ -36,9 +39,14 @@ from hnsw_itu_tpu_torch.ops.fused_search import (FusedTable,
                                                  materialize_fused)
 from hnsw_itu_tpu_torch.ops.hamming import hamming_block, hamming_block_plain
 from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
-from hnsw_itu_tpu_torch.ops.mini_search import (materialize_mini,
+from hnsw_itu_tpu_torch.ops.mini_search import (IINF, MAX_RERANK_K,
+                                                materialize_mini,
                                                 mini_beam_search,
-                                                mini_beam_search_plain)
+                                                mini_beam_search_plain,
+                                                rerank_exact,
+                                                rerank_exact_plain,
+                                                rerank_onehop,
+                                                rerank_onehop_plain)
 from hnsw_itu_tpu_torch.ops.search import beam_search_packed
 from hnsw_itu_tpu_torch.testing import (FUSED_EDGES, GATHER_EDGES,
                                        MINI_EDGES, REPEATED_SEEDS,
@@ -441,6 +449,124 @@ def test_beam_kernels_repeated_seeds(cuda_device, w, ef, E, distinct, tie):
     table, q, d0, s = mini_edge_inputs(*inputs, 7, w, cuda_device)
     _mini_vs_plain(table, q, d0, s, ef=ef, mini_words=7, max_steps=256,
                    tie_bits=tie)
+
+
+def rerank_inputs(rng, words, H, W, dev, B=16, cap=300):
+    """(points, queries, candidates, adjacency) on ``dev`` for the exact
+    rerank: points drawn from 12 sketches (heavy distance ties, so ties
+    go by id), candidates that repeat ids and hold ids < 0, >= cap and
+    IINF, one query with no valid candidate and one whose row is one id
+    throughout; adjacency rows with -1, ids >= cap, IINF and repeats."""
+    base = rng.integers(0, 2**32, size=(12, words), dtype=np.uint32)
+    pts = base[rng.integers(0, 12, size=cap)]
+    qs = base[rng.integers(0, 12, size=B)]
+    qs[::2, 0] ^= 1
+    cand = rng.integers(-3, cap + 3, size=(B, H)).astype(np.int32)
+    cand[rng.random(cand.shape) < 0.1] = IINF
+    cand[1] = IINF
+    cand[2] = 7
+    cand[3, H // 2:] = cand[3, : H - H // 2]
+    adj = rng.integers(-2, cap + 2, size=(cap, W)).astype(np.int32)
+    adj[rng.random(adj.shape) < 0.1] = IINF
+    adj[::3, W // 2:] = adj[::3, : W - W // 2]
+    return (as_sketches(pts, dev), as_sketches(qs, dev),
+            torch.from_numpy(cand).to(dev), torch.from_numpy(adj).to(dev))
+
+
+def _rerank_vs_plain(fn, plain, *args, **kw):
+    """One kernel launch, no plain call, and the plain version's answer."""
+    launches, calls = fn.kernel_launches, fn.plain_calls
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert (fn.kernel_launches, fn.plain_calls) == (launches + 1, calls)
+    want = plain(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [8, 16, 32, 64, 12, 5])
+@pytest.mark.parametrize("H", [16, 96, 128])
+def test_rerank_kernel_matches_plain(cuda_device, words, H):
+    """Both reranks on the kernel against their plain versions: base
+    widths 8, 64 and 128; seeds 0 (rerank_exact, and the one hop without
+    a hop), 1, 8 and past H; k 1, 10 and past the pool (as wide as the
+    kernel holds where the pool is wider); 16-byte row reads at 8 to 64
+    words, 4-byte reads at 12 and 5."""
+    rng = np.random.default_rng(words * 1000 + H)
+    for W in (8, 64, 128):
+        p, q, c, a = rerank_inputs(rng, words, H, W, cuda_device)
+        for seeds in (0, 1, 8, H + 5):
+            pool = H + min(seeds, H) * W
+            for k in (1, 10, min(pool + 7, MAX_RERANK_K)):
+                _rerank_vs_plain(rerank_onehop, rerank_onehop_plain, p, a,
+                                 q, c, k=k, seeds=seeds)
+            if pool > MAX_RERANK_K:
+                with pytest.raises(ValueError):
+                    rerank_onehop(p, a, q, c, k=pool, seeds=seeds)
+        for k in (1, 10, H + 7):
+            for dedup in (False, True):
+                _rerank_vs_plain(rerank_exact, rerank_exact_plain, p, q, c,
+                                 k=k, dedup=dedup)
+
+
+@pytest.mark.cuda
+def test_rerank_kernel_at_the_served_shape(cuda_device):
+    """The 10M cell's rerank: 8192 queries, a beam of 96, 8 seeds of 64
+    neighbors, 32-word sketches, k 10; both reranks."""
+    rng = np.random.default_rng(96)
+    cap, B = 1 << 17, 8192
+    pts, adj = random_graph(rng, cap, 64, 32)
+    qs = rng.integers(0, 2**32, size=(B, 32), dtype=np.uint32)
+    beam = np.stack([rng.choice(cap, size=96, replace=False)
+                     for _ in range(B)]).astype(np.int32)
+    p, q, a = (as_sketches(pts, cuda_device), as_sketches(qs, cuda_device),
+               torch.from_numpy(adj).to(cuda_device))
+    c = torch.from_numpy(beam).to(cuda_device)
+    _rerank_vs_plain(rerank_onehop, rerank_onehop_plain, p, a, q, c, k=10,
+                     seeds=8)
+    _rerank_vs_plain(rerank_exact, rerank_exact_plain, p, q, c, k=10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [0, 4])
+def test_mini_route_reranks_on_the_kernel(cuda_device, hop, monkeypatch):
+    """knns on the mini route on the card: one mini kernel launch and one
+    rerank kernel launch a batch, no plain call, and the answer of the
+    same index on CPU tensors (the plain versions)."""
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models import hnsw as port_hnsw
+    from hnsw_itu_tpu_torch.models import nsw as port_nsw
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    monkeypatch.setattr(port_nsw, "_fused_query_eligible",
+                        lambda *a, **kw: False)
+    pts, qs = make_dataset(6, 1500, 64)
+    opts = IndexOptions(ef_construction=48, connections=12,
+                        max_connections=32, size=1500, batch_size=128,
+                        host_warmup=1500)
+    idx = []
+    for dev in (cuda_device, "cpu"):
+        b = port_hnsw.HNSWBuilder(opts, device=dev)
+        b.extend_batched(pts)
+        i = b.build()
+        i.enable_inline()
+        i.query_entry_sample, i.query_hop = 64, hop
+        idx.append(i)
+    card, cpu = idx
+    assert (card.mini_W, card.mini_words) == (cpu.mini_W, cpu.mini_words)
+    rerank = rerank_onehop if hop else rerank_exact
+    before = (mini_beam_search.kernel_launches, rerank.kernel_launches,
+              mini_beam_search.plain_calls, rerank.plain_calls)
+    got = card.knns(qs, 10, 48)
+    torch.cuda.synchronize()
+    assert card.last_route == "mini"
+    assert (mini_beam_search.kernel_launches, rerank.kernel_launches,
+            mini_beam_search.plain_calls, rerank.plain_calls) == \
+        (before[0] + 1, before[1] + 1, before[2], before[3])
+    want = cpu.knns(qs, 10, 48)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
 
 
 _SHARDED = {}

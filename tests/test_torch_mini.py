@@ -185,29 +185,69 @@ def test_rerank_exact_matches_jax(dedup):
     cands[1, 5] = -1
     cands[2, 7] = IINF
     cands[3, :] = IINF  # no valid candidate at all
+    calls = rerank_exact.plain_calls
     got = rerank_exact(as_sketches(pts, "cpu"), as_sketches(qs, "cpu"),
                        torch.from_numpy(cands), k=k, dedup=dedup)
+    assert rerank_exact.plain_calls == calls + 1
     want = jdma.rerank_exact(jnp.asarray(pts), jnp.asarray(qs),
                              jnp.asarray(cands), k=k, dedup=dedup)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_rerank_onehop_matches_jax():
+@pytest.mark.parametrize("k,seeds", [(6, 3), (6, 20), (200, 3),
+                                     (200, 20)])
+def test_rerank_onehop_matches_jax(k, seeds):
+    """Also seeds > H (every candidate seeds) and k past the pool of
+    H + seeds * W (the answer as wide as the pool)."""
     rng = np.random.default_rng(13)
-    cap, w, H, k, seeds = 150, 8, 16, 6, 3
+    cap, w, H = 150, 8, 16
     pts, adj = random_graph(rng, cap, w, WORDS)
     qs = rng.integers(0, 2**32, size=(5, WORDS), dtype=np.uint32)
     cands = rng.integers(0, cap, size=(5, H)).astype(np.int32)
     cands[0, :14] = IINF  # fewer valid candidates than seeds
+    calls = rerank_onehop.plain_calls
     got = rerank_onehop(as_sketches(pts, "cpu"), torch.from_numpy(adj),
                         as_sketches(qs, "cpu"), torch.from_numpy(cands),
                         k=k, seeds=seeds)
+    assert rerank_onehop.plain_calls == calls + 1
+    assert got[0].shape == (5, min(k, H + min(seeds, H) * w))
     want = jdma.rerank_onehop(jnp.asarray(pts), jnp.asarray(adj),
                               jnp.asarray(qs), jnp.asarray(cands), k=k,
                               seeds=seeds)
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+
+
+@pytest.mark.parametrize("bad", ["points", "queries", "cand_ids", "adj"])
+def test_rerank_wrappers_check_inputs(bad):
+    """Either rerank raises, before it routes, on an input that is not
+    int32 or that lies on another device than the queries; on inputs all
+    on a device no route serves (meta); and on a negative k or seeds."""
+    rng = np.random.default_rng(17)
+    pts, adj = random_graph(rng, 64, 8, 8)
+    args = {"points": as_sketches(pts, "cpu"),
+            "queries": as_sketches(pts[:4], "cpu"),
+            "cand_ids": torch.from_numpy(adj[:4]),
+            "adj": torch.from_numpy(adj)}
+
+    def refused(err, k=4, seeds=2, **over):
+        a = dict(args, **over)
+        calls = (rerank_exact.plain_calls, rerank_onehop.plain_calls)
+        if bad != "adj" and seeds >= 0:  # rerank_exact: no adj, no seeds
+            with pytest.raises(err):
+                rerank_exact(a["points"], a["queries"], a["cand_ids"], k=k)
+        with pytest.raises(err):
+            rerank_onehop(a["points"], a["adj"], a["queries"],
+                          a["cand_ids"], k=k, seeds=seeds)
+        assert (rerank_exact.plain_calls,
+                rerank_onehop.plain_calls) == calls
+
+    refused(TypeError, **{bad: args[bad].to(torch.int64)})
+    refused(ValueError, **{bad: args[bad].to("meta")})
+    refused(ValueError, **{n: t.to("meta") for n, t in args.items()})
+    refused(ValueError, k=-1)
+    refused(ValueError, seeds=-1)
 
 
 def test_sampled_entry_topk_matches_jax():
@@ -307,8 +347,11 @@ def test_knns_mini_path_matches_jax(mini_indexes, ef, hop, beams, tie,
         idx.query_hop, idx.query_entry_beams, idx.query_tie = hop, beams, tie
     want = jidx.knns(qs, K, ef)
     calls = mini_beam_search.plain_calls
+    rerank = rerank_onehop if hop else rerank_exact
+    reranks = rerank.plain_calls
     got = pidx.knns(qs, K, ef)
     assert mini_beam_search.plain_calls == calls + 1
+    assert rerank.plain_calls == reranks + 1
     np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
     for key in ("visited_q", "steps_q"):
