@@ -71,8 +71,10 @@ cards. Phases, each printed as it ends:
      shapes: one chunk of 4096 searches at ef=96 over the finished base
      layer (keys/visited/steps equal; its resident warps, the ef sweep),
      then the [4096, 96, 96] select blocks of those beams; both timed,
-     with the pairwise_mxu route beside the block kernel, also at the
-     sampled entry's shape;
+     with the pairwise_mxu route beside the block kernel; and the sampled
+     entry kernel against its plain version at the 1M cell's shape
+     (10,000 queries, a 1024-point sample), one launch, timed with its
+     bound beside the plain chain and pairwise_mxu + argmin;
  11. the device-built index served on the fused path: oracle, fused
      table, knns at k=10, ef=32, max_steps auto; best of 3,
      recall@10 >= 0.93, the fused kernel's launches in those calls (the
@@ -150,7 +152,9 @@ cards. Phases, each printed as it ends:
      options (efc=96, m=24, M=64, batch_size 1024: 16,384-row chunks after
      a 50k native warmup), its level sizes equal to the JAX builder's
      draw, #6 and #7 launched and their plain versions never called, both
-     held to their plain versions at one build chunk; the oracle on the
+     held to their plain versions at one build chunk, and the sampled
+     entry kernel held to its plain version at 8192 queries against
+     samples of 1024 and 65,536; the oracle on the
      card; the runner's attribution (the general route, ef=64, 2048
      queries, entry samples 1024 and 65,536, dedup by beam); the mini
      table the policy picks from the card's free memory (its W, mini_words,
@@ -242,6 +246,9 @@ DMA_SRC = "hnsw_itu_tpu_torch/csrc/dma_beam_search.cu"
 DMA_REPLACES = "hnsw_itu_tpu/ops/pallas_dma_search.py:355"
 HAM_SRC = "hnsw_itu_tpu_torch/csrc/hamming_block.cu"
 HAM_REPLACES = "hnsw_itu_tpu/ops/pallas_hamming.py:26"
+ENTRY_SRC = "hnsw_itu_tpu_torch/csrc/sampled_entry.cu"
+# no TPU kernel: the JAX sampled entry is XLA code
+ENTRY_REPLACES = "hnsw_itu_tpu/ops/entry.py sampled_entry (XLA, no kernel)"
 # the JAX bench's build (bench.py:180-188), IndexOptions defaults spelled out
 BUILD_N = 1_000_000
 BUILD_OPTS = dict(ef_construction=96, connections=24, max_connections=64,
@@ -629,6 +636,7 @@ def phase_query(index, qs, gt_i, dev):
     import numpy as np
     import torch
 
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
     from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.utils import recall_at_k
@@ -646,6 +654,7 @@ def phase_query(index, qs, gt_i, dev):
         f"{index.fused.data.numel() * 4 / 1e9:.3f} GB data + ids, built in "
         f"{time.perf_counter() - t0:.2f} s")
     q = as_sketches(qs, dev)
+    sampled_entry.kernel_launches = sampled_entry.plain_calls = 0
     index.knns(q, K, EF)
     torch.cuda.synchronize()
     best = float("inf")
@@ -654,6 +663,7 @@ def phase_query(index, qs, gt_i, dev):
         res = index.knns(q, K, EF)
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
+    entry = entry_main_path("5", 4, -(-nq // index.query_batch))
     ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
     if ids.shape != (nq, K) or dists.shape != (nq, K):
         raise AssertionError(f"result shape {ids.shape}, want {(nq, K)}")
@@ -672,7 +682,7 @@ def phase_query(index, qs, gt_i, dev):
         f"plain_calls {fused_beam_search.plain_calls}")
     if rec < RECALL_GATE:
         raise AssertionError(f"recall@10 {rec:.4f} < {RECALL_GATE}")
-    return best
+    return best, entry
 
 
 def fused_at_served_shapes(index, qs, dev, smi, *, max_steps, tag,
@@ -1026,6 +1036,7 @@ def phase_mini_query(index, qs, gt_i, dev):
     import numpy as np
     import torch
 
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.ops.mini_search import mini_beam_search
     from hnsw_itu_tpu_torch.utils import recall_at_k
@@ -1056,6 +1067,7 @@ def phase_mini_query(index, qs, gt_i, dev):
                 index.last_stats["steps"] / nq)
 
     out = {}
+    sampled_entry.kernel_launches = sampled_entry.plain_calls = 0
     for ef in MINI_EFS:
         before = mini_beam_search.kernel_launches
         index.knns(q, K, ef)
@@ -1078,6 +1090,8 @@ def phase_mini_query(index, qs, gt_i, dev):
             raise AssertionError(f"mini kernel not launched at ef={ef}")
         if ef == EF and rec < RECALL_GATE:
             raise AssertionError(f"recall@10 {rec:.4f} < {RECALL_GATE}")
+    entry = entry_main_path("7", 5 * len(MINI_EFS),
+                            -(-nq // index.query_batch))
     index.query_entry_beams, index.query_hop = 4, 8
     index.query_tie = "bitrev"
     rec, vis, steps = run(EF)
@@ -1098,7 +1112,7 @@ def phase_mini_query(index, qs, gt_i, dev):
                 f"recall@10 {rec:.4f}, visited/q {vis:.1f}, steps/q "
                 f"{steps:.2f}")
     index.query_entry_sample = SAMPLE
-    return out
+    return out, entry
 
 
 def phase_mini_slice_shapes(index, qs, dev, smi, knns_ms):
@@ -1345,29 +1359,93 @@ def hamming_vs_plain(x, what, smi, tag):
             "popc_ms": bd["popc_ms"]}
 
 
-def entry_block_vs_mxu(q, sample, smi, tag):
-    """Kernel #7 at the sampled entry's shape, every query against the
-    sample (timed only: the entry keeps ``pairwise_mxu``): equal to
-    ``Hamming.pairwise_mxu`` there (raises otherwise), both timed, and
-    #7's bound."""
-    from hnsw_itu_tpu_torch.ops.hamming import hamming_block
+def entry_bound(B, S, words) -> dict:
+    """The sampled entry kernel's bound (csrc/sampled_entry.cu) on B
+    queries against an S-point sample: the larger of its bit products
+    (B S words 32 bit pairs, 2 operations each, at the int8 tensor-core
+    rate, as #7's ``hamming_bound`` counts them) and its bytes (the
+    queries and the sample rows read once, the int32 ids written); its
+    m16n8k256 products."""
+    ops_ms = 2 * B * S * words * 32 / INT8_OPS_PER_S * 1e3
+    nbytes = (B + S) * words * 4 + B * 4
+    mem_ms = bound_ms(nbytes)
+    mma = -(-B // 16) * -(-S // 8) * -(-words // 8)
+    return {"bound_ms": max(ops_ms, mem_ms),
+            "bound_by": "operations" if ops_ms > mem_ms else "bytes",
+            "bytes": nbytes, "mma": mma}
+
+
+def entry_main_path(tag, calls, batches):
+    """The sampled entry's counters since they were zeroed, after ``calls``
+    knns calls of ``batches`` query batches each on card tensors: one
+    kernel launch a batch and no plain call (raises otherwise)."""
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
+
+    rec = {"batches": calls * batches,
+           "launches": sampled_entry.kernel_launches,
+           "plain_calls": sampled_entry.plain_calls}
+    log(f"[{tag}] sampled entry: {rec['launches']} kernel launches, "
+        f"{rec['plain_calls']} plain calls for {rec['batches']} query "
+        "batches")
+    if rec["launches"] != rec["batches"] or rec["plain_calls"]:
+        raise AssertionError(f"[{tag}] sampled entry on the main path: {rec}")
+    return rec
+
+
+def entry_vs_plain(points, q, n, sample, smi, tag):
+    """The sampled entry at a query batch's shape: one kernel launch and
+    no plain call, its ids equal to its plain version's (raises
+    otherwise), then timed by CUDA events beside its bound
+    (``entry_bound``), its plain version (ids, gather, ``pairwise_mxu``
+    blocks, argmin) and the library yardstick (``pairwise_mxu`` and
+    ``argmin`` on the gathered sample)."""
+    import torch
+
+    from hnsw_itu_tpu_torch.ops.entry import (sampled_entry,
+                                              sampled_entry_plain,
+                                              strided_sample_ids)
     from hnsw_itu_tpu_torch.ops.metrics import HAMMING
 
-    got = hamming_block(q, sample)
-    if max_abs_diff((got,), (HAMMING.pairwise_mxu(q, sample),)):
-        raise AssertionError(f"hamming block != pairwise_mxu at the entry "
-                             f"{tuple(got.shape)}")
-    bd = hamming_bound(q, sample, got)
-    del got
-    ke = cuda_ms(lambda: hamming_block(q, sample), 10)
-    le = cuda_ms(lambda: HAMMING.pairwise_mxu(q, sample), 3)
-    log(f"[{tag}] on {smi}: entry shape {tuple(q.shape)} x "
-        f"{sample.shape[0]}: hamming block {ke:.3f} ms (equal to "
-        f"pairwise_mxu), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; "
-        f"pairwise_mxu {le:.3f} ms (the entry keeps pairwise_mxu)")
-    return {"shape": [q.shape[0], sample.shape[0]], "ms": ke,
-            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-            "pairwise_mxu_ms": le}
+    def kernel():
+        return sampled_entry(points, q, n, sample_size=sample,
+                             metric=HAMMING)
+
+    def plain():
+        return sampled_entry_plain(points, q, n, sample_size=sample,
+                                   metric=HAMMING)
+
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    got = kernel()
+    torch.cuda.synchronize()
+    if (sampled_entry.kernel_launches, sampled_entry.plain_calls) != \
+            (before[0] + 1, before[1]):
+        raise AssertionError(f"[{tag}] sampled entry: not one launch")
+    want = plain()
+    diff = int((got != want).sum())
+    err = int((got.long() - want.long()).abs().max()) if diff else 0
+    if diff:
+        raise AssertionError(f"[{tag}] sampled entry kernel != plain on "
+                             f"{diff} of {q.shape[0]} queries (ids up to "
+                             f"{err} apart)")
+    ids = strided_sample_ids(n, sample, device=q.device)
+    rows = points[ids.long()]
+    B, words = q.shape
+    bd = entry_bound(B, sample, words)
+    k_ms = cuda_ms(kernel, 20)
+    p_ms = cuda_ms(plain, 3)
+    l_ms = cuda_ms(lambda: torch.argmin(HAMMING.pairwise_mxu(q, rows),
+                                        dim=1), 3)
+    log(f"[{tag}] on {smi}: sampled entry {B} x {sample} ({words} words, "
+        f"n {n}): kernel {k_ms:.4f} ms (ids equal to the plain version's), "
+        f"plain {p_ms:.3f} ms, pairwise_mxu + argmin {l_ms:.3f} ms; bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+        f"({bd['bound_ms'] / k_ms:.0%} of it); {bd['mma']} m16n8k256, "
+        f"{bd['mma'] * 18 / (132 * 1.98e9) * 1e3:.4f} ms at the rate #7 "
+        "showed (an estimate: about 18 SM clocks each at 1.98 GHz over 132 "
+        "SMs)")
+    return {"shape": [B, sample, words], "n": n, "ids_differing": diff,
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, **bd}
 
 
 def phase_build_kernels(index, qs, dev, smi):
@@ -1447,11 +1525,11 @@ def phase_build_kernels(index, qs, dev, smi):
     cand = points[torch.where(bi < IINF, bi, 0).long()].contiguous()
     ham = hamming_vs_plain(cand, "select, one chunk", smi, "10")
 
-    # the sampled entry's shape: every query against the 1024-point sample
-    sample = points[torch.linspace(0, index.n - 1, SAMPLE,
-                                   device=dev).long()].contiguous()
-    entry = entry_block_vs_mxu(as_sketches(qs, dev), sample, smi, "10")
-    return {"dma": dma, "ham": {**ham, "entry": entry}}
+    # the sampled entry at the 1M cell's shape: every query against the
+    # 1024-point sample
+    entry = entry_vs_plain(points, as_sketches(qs, dev), index.n, SAMPLE,
+                           smi, "10")
+    return {"dma": dma, "ham": ham, "entry": entry}
 
 
 def phase_build_query(index, pts, qs, dev, smi):
@@ -1462,6 +1540,7 @@ def phase_build_query(index, pts, qs, dev, smi):
     import numpy as np
     import torch
 
+    from hnsw_itu_tpu_torch.ops.entry import sampled_entry
     from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
     from hnsw_itu_tpu_torch.ops.metrics import as_sketches
     from hnsw_itu_tpu_torch.utils import recall_at_k
@@ -1481,6 +1560,7 @@ def phase_build_query(index, pts, qs, dev, smi):
         f"{time.perf_counter() - t0:.2f} s")
     q = as_sketches(qs, dev)
     fused_beam_search.kernel_launches = fused_beam_search.plain_calls = 0
+    sampled_entry.kernel_launches = sampled_entry.plain_calls = 0
     index.knns(q, K, EF)
     torch.cuda.synchronize()
     best = float("inf")
@@ -1491,6 +1571,7 @@ def phase_build_query(index, pts, qs, dev, smi):
         best = min(best, time.perf_counter() - t0)
     launches = fused_beam_search.kernel_launches
     plain = fused_beam_search.plain_calls
+    entry = entry_main_path("11", 4, -(-nq // index.query_batch))
     ids, dists = res.ids.cpu().numpy(), res.dists.cpu().numpy()
     if ids.shape != (nq, K) or not ((ids >= 0) & (ids < index.n)).all() \
             or not (np.diff(dists, axis=1) >= 0).all():
@@ -1511,7 +1592,7 @@ def phase_build_query(index, pts, qs, dev, smi):
                                     max_steps=index._steps_cap(EF))
     del kernel["entry"]
     return {"recall": rec, "knns_ms": best * 1e3, "launches": launches,
-            "kernel": kernel, "gt_i": gt_i, "gt_d": gt_d}
+            "entry": entry, "kernel": kernel, "gt_i": gt_i, "gt_d": gt_d}
 
 
 def gather_bytes(rows, fresh, B, W, words, ef):
@@ -2599,13 +2680,11 @@ def flagship_build_kernels(index, pts, dev, smi):
     rec = chunk_kernels(index.base.adj, index.points, q, eps,
                         FLAGSHIP_OPTS["ef_construction"], smi, "18",
                         f"a {index.n}-point build chunk")
-    # the wide sampled entry's block: a query batch against the
-    # 65,536-point sample (timed only)
-    sample = index.points[torch.linspace(0, index.n - 1, MINI_WIDE_SAMPLE,
-                                         device=dev).long()].contiguous()
-    rec["ham"]["entry"] = entry_block_vs_mxu(q[:FLAGSHIP_QUERY_BATCH], sample,
-                                             smi, "18")
-    del sample
+    # the sampled entry at the 10M cell's shape (a query batch against the
+    # 1024-point sample) and at the 65,536-point sample
+    rec["entry"] = {str(es): entry_vs_plain(
+        index.points, q[:FLAGSHIP_QUERY_BATCH], index.n, es, smi, "18")
+        for es in (FLAGSHIP_OPTS["entry_sample"], MINI_WIDE_SAMPLE)}
     torch.cuda.empty_cache()
     return rec
 
@@ -3707,7 +3786,7 @@ def main(argv=None) -> int:
     lap("3")
     gt_i = phase_oracle(pts, qs, dev)
     lap("4")
-    knns_s = phase_query(index, qs, gt_i, dev)
+    knns_s, entry_5 = phase_query(index, qs, gt_i, dev)
     lap("5")
     launches = fused_beam_search.kernel_launches
     plain = fused_beam_search.plain_calls
@@ -3734,7 +3813,7 @@ def main(argv=None) -> int:
     mini_beam_search.kernel_launches = 0
     mini_beam_search.plain_calls = 0
     fused_before = fused_beam_search.kernel_launches
-    mini_q = phase_mini_query(index, qs, gt_i, dev)
+    mini_q, entry_7 = phase_mini_query(index, qs, gt_i, dev)
     mini_launches = mini_beam_search.kernel_launches
     mini_plain = mini_beam_search.plain_calls
     log(f"[7] mini path: kernel_launches {mini_launches}, plain_calls "
@@ -3848,6 +3927,8 @@ def main(argv=None) -> int:
     log("[18] record " + json.dumps({k: flagship[k] for k in (
         "build", "attribution", "policy", "jax_budget")}))
     fl_build = flagship["build"]
+    main_entry = (entry_5, entry_7, served["entry"])
+    entry_checks = (bk["entry"], *flagship["kernels"]["entry"].values())
     print(json.dumps({"kernels": [{
         "name": "fused_beam_search",
         "route": "cuda",
@@ -3986,7 +4067,6 @@ def main(argv=None) -> int:
         # Hamming.pairwise_mxu's route: bit unpack + one float32 matmul
         "library_ms": bk["ham"]["library_ms"],
         "popc_ms": bk["ham"]["popc_ms"],  # the earlier __popc design
-        "entry_shape": bk["ham"]["entry"],
         # phase 12: the select and prune blocks of the M=256 CLI build,
         # each against its plain version at the build's own shape
         "cli_build": {"launches": cli["ham_launches"], **cli["ham"]},
@@ -3998,6 +4078,27 @@ def main(argv=None) -> int:
         # phase 18: the 10M build's blocks, and one chunk's select block
         "flagship_build": {"launches": fl_build["ham_launches"],
                            "chunk": flagship["kernels"]["ham"]},
+    }, {
+        "name": "sampled_entry",
+        "route": "cuda",
+        "source": ENTRY_SRC,
+        "replaces": ENTRY_REPLACES,
+        # the main path's query batches (phases 5, 7 and 11, counters
+        # zeroed before each phase's knns calls): one launch a batch, no
+        # plain call
+        "launches": sum(e["launches"] for e in main_entry),
+        "plain_calls": sum(e["plain_calls"] for e in main_entry),
+        "batches": sum(e["batches"] for e in main_entry),
+        "main_path": dict(zip(("5", "7", "11"), main_entry)),
+        # ids that differ from the plain version's, and their largest
+        # difference, over every check (phases 10 and 18)
+        "ids_differing": sum(e["ids_differing"] for e in entry_checks),
+        "max_abs_err": max(e["max_abs_err"] for e in entry_checks),
+        **{k: bk["entry"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "shape",
+                                       "mma")},
+        # phase 18: the 10M cell's shape and the 65,536-point sample
+        "flagship": flagship["kernels"]["entry"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

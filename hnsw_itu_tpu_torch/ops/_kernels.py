@@ -139,6 +139,8 @@ _ENTRIES = {
     "exact_rerank": ("hnsw_exact_rerank",
                      [_P, _I, _I, _P, _P, _I, _I, _P] + [_I] * 4
                      + [_P] * 3),
+    "sampled_entry": ("hnsw_sampled_entry", [_P, _I, _I, _P] + [_I] * 3
+                      + [_P] * 2),
 }
 KERNELS = tuple(_ENTRIES)
 # the beam kernels also export hnsw_<name>_warps(ef, W): the resident warps
@@ -295,3 +297,21 @@ def launch_exact_rerank(points, queries, cand_ids, adj, out_d, out_i, *,
             out_d.shape[1], out_d.data_ptr(), out_i.data_ptr(), stream,
         )
     _check_rc(lib, rc, "exact_rerank")
+
+
+def launch_sampled_entry(points, queries, out, *, n: int,
+                         sample_size: int) -> None:
+    """Launch the sampled entry kernel on the current stream of the
+    queries' device: ``out`` int32[B], the id of each query's nearest
+    point among the ``sample_size`` strided sample of ``points[:n]``. The
+    caller has checked dtypes, shapes and contiguity."""
+    lib = _load("sampled_entry")
+    dev = queries.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hnsw_sampled_entry(
+            points.data_ptr(), points.shape[0], points.shape[1],
+            queries.data_ptr(), queries.shape[0], n, sample_size,
+            out.data_ptr(), stream,
+        )
+    _check_rc(lib, rc, "sampled_entry")

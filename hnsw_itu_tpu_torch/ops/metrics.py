@@ -214,8 +214,9 @@ class Hamming(Metric):
     def pairwise_block(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """[M, W] x [N, W] -> int32 [M, N], or batched [P, M, W] x
         [P, N, W] -> [P, M, N], through ``ops/hamming.py`` (the dense
-        Hamming kernel on the card). The entry and the oracle keep
-        ``pairwise_mxu``."""
+        Hamming kernel on the card). The oracle and ``sampled_entry_topk``
+        keep ``pairwise_mxu``; the sampled entry has its own kernel
+        (``ops/entry.py``)."""
         from .hamming import hamming_block
 
         return hamming_block(a, b)

@@ -15,8 +15,11 @@ merge (W = 128 and 24, rows that are all fresh or one id throughout, ids
 near 2^31 - 1, ids that collide in the set, ef = 1 and 128 with ef seeds,
 tie_bits 31; the cases of ``hnsw_itu_tpu_torch.testing``, which
 chip_smoke.py runs too) and with seeds that repeat an id; the dense
-Hamming block on odd and batched shapes; a 4-shard sharded build on one
-card and its fused knns against the same on CPU tensors. One test needs
+Hamming block on odd and batched shapes; the sampled entry kernel (ids)
+over query tiles, sample sizes, widths, repeated ids, the 10M runner's n,
+ties, unaligned rows and under knns on both table routes; a 4-shard
+sharded build on one card and its fused knns against the same on CPU
+tensors. One test needs
 no card: the kernel libraries' names follow their included headers.
 
 This file imports no JAX, so it also runs where only PyTorch is
@@ -38,7 +41,8 @@ from hnsw_itu_tpu_torch.ops.fused_search import (FusedTable,
                                                  key_clamp,
                                                  materialize_fused)
 from hnsw_itu_tpu_torch.ops.hamming import hamming_block, hamming_block_plain
-from hnsw_itu_tpu_torch.ops.metrics import as_sketches, popcount_sum
+from hnsw_itu_tpu_torch.ops.entry import sampled_entry, strided_sample_ids
+from hnsw_itu_tpu_torch.ops.metrics import HAMMING, as_sketches, popcount_sum
 from hnsw_itu_tpu_torch.ops.mini_search import (IINF, MAX_RERANK_K,
                                                 materialize_mini,
                                                 mini_beam_search,
@@ -626,6 +630,197 @@ def test_sharded_fused_knns_on_card_matches_cpu(cuda_device):
     got = card.knns(qs, 10, 48)
     torch.cuda.synchronize()
     assert fused_beam_search.kernel_launches == before + 4
+    want = cpu.knns(qs, 10, 48)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+# -- the sampled entry (csrc/sampled_entry.cu) ---------------------------------
+
+FLAGSHIP_N = 10_120_192  # the 10M runner's points: (s * n) passes 2^31
+
+# (B, S, words, n, kind): query tiles of 1, 15, 16, 17 and 10,000 rows
+# (the 1M cell's batch); samples of 1, 7, 1024 (both cells'), 1025, 4097
+# and 65,536 (the wide entry); widths 1 to 64, 16-byte row copies where
+# words % 4 == 0 and 4-byte ones elsewhere; n below S (repeated ids) and
+# at the 10M cell's n. "ties": points and queries drawn from 6 sketches
+# with sparse flips (ties everywhere), duplicated sample rows and queries
+# equidistant from two sample positions.
+ENTRY_CASES = [
+    (1, 1, 32, 1000, "random"),
+    (15, 7, 1, 500, "random"),
+    (16, 1024, 32, 5000, "ties"),
+    (17, 1025, 8, 3000, "random"),
+    (17, 4097, 31, 20_000, "ties"),
+    (16, 1024, 64, 4000, "ties"),
+    (15, 65_536, 8, 70_000, "random"),
+    (17, 1024, 32, 100, "random"),
+    (16, 7, 31, 3, "ties"),
+    (33, 1024, 4, FLAGSHIP_N, "random"),
+    (17, 65_536, 4, FLAGSHIP_N, "ties"),
+    (10_000, 1024, 32, 200_000, "random"),
+    (10_000, 1024, 32, 200_000, "ties"),
+]
+
+
+def entry_inputs(rng, B, S, words, n, kind):
+    """(points uint32[n, words], queries uint32[B, words]) for the sampled
+    entry. ``ties``: rows of 6 base sketches with 0-2 bits flipped; three
+    sample positions (5, 9 and S // 2 where S allows) hold one sketch
+    that no other sample row holds and the first query equals, and the
+    second query lies at one bit from each of two sample rows (the later
+    position first)."""
+    if kind == "random":
+        return (rng.integers(0, 2**32, size=(n, words), dtype=np.uint32),
+                rng.integers(0, 2**32, size=(B, words), dtype=np.uint32))
+    base = rng.integers(0, 2**32, size=(6, words), dtype=np.uint32)
+
+    def draw(m):
+        x = base[rng.integers(0, 6, size=m)]
+        flips = rng.integers(0, 3, size=m)
+        x[flips > 0, 0] ^= np.uint32(1) << rng.integers(
+            0, 32, size=int((flips > 0).sum()), dtype=np.uint32)
+        x[flips > 1, -1] ^= np.uint32(1) << np.uint32(7)
+        return x
+
+    pts, qs = draw(n), draw(B)
+    ids = strided_sample_ids(n, S, device="cpu").numpy()
+    if S > 9 and n >= S:
+        pts[ids[[5, 9, S // 2]]] = qs[0] = rng.integers(
+            0, 2**32, size=words, dtype=np.uint32)
+        a, b = ids[S - 1], ids[S // 3]
+        pts[a] = pts[b] = rng.integers(0, 2**32, size=words, dtype=np.uint32)
+        qs[1] = pts[a]
+        qs[1, 0] ^= np.uint32(3)  # one bit from each once the rows split
+        pts[a, 0] ^= np.uint32(1)
+        pts[b, 0] ^= np.uint32(2)
+    return pts, qs
+
+
+def _entry_vs_plain(points, qs, n, S):
+    """One kernel launch, no plain call, and the ids of ``sampled_entry``
+    on the same tensors moved to the CPU (its plain version)."""
+    launches, calls = (sampled_entry.kernel_launches,
+                       sampled_entry.plain_calls)
+    got = sampled_entry(points, qs, n, sample_size=S, metric=HAMMING)
+    torch.cuda.synchronize()
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        (launches + 1, calls)
+    assert got.dtype == torch.int32 and got.shape == (qs.shape[0],)
+    want = sampled_entry(points.cpu(), qs.cpu(), n, sample_size=S,
+                         metric=HAMMING)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,words,n,kind", ENTRY_CASES)
+def test_sampled_entry_kernel_matches_plain(cuda_device, B, S, words, n,
+                                            kind):
+    """The sampled entry on the kernel against its plain version: the
+    same int32 ids, ties to the lowest sample position."""
+    rng = np.random.default_rng(B * 7 + S * 3 + words + n % 1000)
+    pts, qs = entry_inputs(rng, B, S, words, n, kind)
+    p, q = as_sketches(pts, cuda_device), as_sketches(qs, cuda_device)
+    got = _entry_vs_plain(p, q, n, S)
+    if kind == "ties" and S > 9 and n >= S:
+        ids = strided_sample_ids(n, S, device="cpu").numpy()
+        assert int(got[0]) == ids[5]
+        assert int(got[1]) == ids[S // 3]
+
+
+@pytest.mark.cuda
+def test_sampled_entry_kernel_on_unaligned_rows(cuda_device):
+    """Points that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies at any width; an empty batch launches nothing."""
+    rng = np.random.default_rng(44)
+    pts, qs = entry_inputs(rng, 40, 1024, 32, 3001, "ties")
+    flat = as_sketches(pts, cuda_device).reshape(-1)
+    shifted = torch.empty(flat.numel() + 1, dtype=torch.int32,
+                          device=cuda_device)
+    shifted[1:] = flat
+    p = shifted[1:].view(3001, 32)
+    assert p.data_ptr() % 16 == 4
+    _entry_vs_plain(p[:3000], as_sketches(qs, cuda_device), 3000, 1024)
+    launches = sampled_entry.kernel_launches
+    empty = sampled_entry(p, as_sketches(qs, cuda_device)[:0], 3000,
+                          sample_size=1024, metric=HAMMING)
+    assert empty.shape == (0,) and sampled_entry.kernel_launches == launches
+
+
+@pytest.mark.cuda
+def test_sampled_entry_kernel_with_64_bit_keys(cuda_device):
+    """A sample of 2^21 + 1 points at 33 words: the position takes 22 bits
+    and the distance 11 of the 64-bit key (and the rows copy 4 bytes at a
+    time). Held to the plain Hamming distance (``popcount_sum`` of the
+    XOR) over the sample in row chunks on the card, then argmin (the
+    plain version's float32 tables would take 9 GB a block); a tie at
+    positions S - 3 and S - 1 goes to S - 3."""
+    S, words, n, B = (1 << 21) + 1, 33, (1 << 21) + 5000, 20
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    p = torch.randint(-2**31, 2**31 - 1, (n, words), dtype=torch.int32,
+                      device=cuda_device, generator=g)
+    q = torch.randint(-2**31, 2**31 - 1, (B, words), dtype=torch.int32,
+                      device=cuda_device, generator=g)
+    ids = strided_sample_ids(n, S, device=cuda_device)
+    p[ids[[S - 3, S - 1]].long()] = q[0]
+    launches = sampled_entry.kernel_launches
+    got = sampled_entry(p, q, n, sample_size=S, metric=HAMMING)
+    sample = p[ids.long()]
+    d = torch.cat([popcount_sum(q[:, None] ^ sample[None, s : s + 65_536])
+                   for s in range(0, S, 65_536)], dim=1)
+    want = ids[torch.argmin(d, dim=1)]
+    torch.cuda.synchronize()
+    assert sampled_entry.kernel_launches == launches + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(got[0]) == int(ids[S - 3])
+
+
+@pytest.mark.cuda
+def test_sampled_entry_kernel_raises_past_64_words(cuda_device):
+    """Sketches wider than the kernel's raise on the card before any
+    launch: no plain version runs on card tensors."""
+    p = torch.zeros((100, 65), dtype=torch.int32, device=cuda_device)
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    with pytest.raises(ValueError, match="words=65"):
+        sampled_entry(p, p[:4], 100, sample_size=16, metric=HAMMING)
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "mini"])
+def test_knns_entry_on_the_kernel(cuda_device, route, monkeypatch):
+    """knns on the card with an entry sample: one sampled entry launch a
+    query batch, no plain call, and the answer of the same index on CPU
+    tensors."""
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models import hnsw as port_hnsw
+    from hnsw_itu_tpu_torch.models import nsw as port_nsw
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    if route == "mini":
+        monkeypatch.setattr(port_nsw, "_fused_query_eligible",
+                            lambda *a, **kw: False)
+    pts, qs = make_dataset(8, 1500, 100)
+    opts = IndexOptions(ef_construction=48, connections=12,
+                        max_connections=32, size=1500, batch_size=128,
+                        host_warmup=1500)
+    idx = []
+    for dev in (cuda_device, "cpu"):
+        b = port_hnsw.HNSWBuilder(opts, device=dev)
+        b.extend_batched(pts)
+        i = b.build()
+        i.enable_inline()
+        i.query_entry_sample, i.query_batch = 256, 32
+        idx.append(i)
+    card, cpu = idx
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    got = card.knns(qs, 10, 48)
+    torch.cuda.synchronize()
+    assert card.last_route == route
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        (before[0] + 4, before[1])  # 100 queries in batches of 32
     want = cpu.knns(qs, 10, 48)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)

@@ -11,9 +11,11 @@ from hnsw_itu_tpu.ops.entry import strided_sample_ids as jax_strided
 from hnsw_itu_tpu.ops.metrics import get_metric as jax_get_metric
 from hnsw_itu_tpu.ops.topk import merge_min_k as jax_merge_min_k
 from hnsw_itu_tpu_torch import native
+from hnsw_itu_tpu_torch.ops import entry as port_entry
 from hnsw_itu_tpu_torch.ops.entry import sampled_entry, strided_sample_ids
-from hnsw_itu_tpu_torch.ops.metrics import (as_sketches, get_metric,
-                                            popcount, unpack_bits)
+from hnsw_itu_tpu_torch.ops.metrics import (HAMMING, L2, L2INT, as_sketches,
+                                            get_metric, popcount,
+                                            unpack_bits)
 from hnsw_itu_tpu_torch.ops.topk import inverse_permutation, merge_min_k
 from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
@@ -89,6 +91,176 @@ def test_sampled_entry_matches_jax_with_ties():
                              sample_size=S, metric=JM)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got[0] == got[1] == ids[5]
+
+
+class _Points:
+    """Stands in for a points tensor on a device this machine may lack:
+    ``kernel_route`` reads only the device and the shape."""
+
+    def __init__(self, device, words):
+        self.device, self.shape = torch.device(device), (100, words)
+
+
+@pytest.mark.parametrize("metric,device,words,kernel", [
+    (HAMMING, "cuda", 32, True), (HAMMING, "cuda", 1, True),
+    (HAMMING, "cuda", 64, True), (HAMMING, "cuda", 65, True),
+    (HAMMING, "cpu", 32, False), (HAMMING, "meta", 32, False),
+    (L2, "cuda", 32, False), (L2INT, "cuda", 3, False)])
+def test_sampled_entry_routes_by_its_inputs(metric, device, words, kernel):
+    """The kernel for Hamming sketches on a card at any width (past 64
+    words it raises there, as the next test shows); the plain version
+    (``pairwise_mxu`` blocks) for CPU tensors and the other metrics."""
+    assert port_entry.kernel_route(_Points(device, words), metric) is kernel
+
+
+def test_sampled_entry_past_64_words_raises_on_the_kernel_route(
+        monkeypatch):
+    """Sketches wider than the kernel's on the kernel route raise before
+    any launch and take no plain route (meta tensors stand in for the
+    card's; ``kernel_route`` is made to say card)."""
+    monkeypatch.setattr(port_entry, "kernel_route", lambda *a: True)
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    with pytest.raises(ValueError, match="words=65"):
+        sampled_entry(_meta((1000, 65)), _meta((64, 65)), 1000,
+                      sample_size=1024, metric=HAMMING)
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        before
+
+
+def test_sampled_entry_on_cpu_takes_the_plain_version():
+    rng = np.random.default_rng(11)
+    pts, qs = _sketches(rng, 700), _sketches(rng, 40)
+    p, q = as_sketches(pts, "cpu"), as_sketches(qs, "cpu")
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    got = sampled_entry(p, q, 700, sample_size=96, metric=TM)
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(got, port_entry.sampled_entry_plain(
+        p, q, 700, sample_size=96, metric=TM))
+    ids = strided_sample_ids(700, 96, device="cpu")
+    want = ids[torch.argmin(TM.pairwise(q, p[ids.long()]), dim=1)]
+    assert torch.equal(got, want)
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case,err", [
+    ("int64 points", TypeError), ("int64 queries", TypeError),
+    ("non-contiguous points", ValueError),
+    ("non-contiguous queries", ValueError), ("65 words", ValueError),
+    ("0 words", ValueError), ("words differ", ValueError),
+    ("devices differ", ValueError), ("n 0", ValueError),
+    ("n past the rows", ValueError), ("sample 0", ValueError),
+    ("sample past 2^30", ValueError)])
+def test_sampled_entry_kernel_checks_before_any_launch(case, err):
+    """What the kernel does not take raises in ``_check_launch`` (meta
+    tensors: nothing is allocated or launched)."""
+    p, q, n, S = _meta((1000, 32)), _meta((64, 32)), 1000, 1024
+    if case == "int64 points":
+        p = _meta((1000, 32), torch.int64)
+    elif case == "int64 queries":
+        q = _meta((64, 32), torch.int64)
+    elif case == "non-contiguous points":
+        p = _meta((32, 1000)).t()
+    elif case == "non-contiguous queries":
+        q = _meta((64, 64))[:, ::2]
+    elif case == "65 words":
+        p, q = _meta((1000, 65)), _meta((64, 65))
+    elif case == "0 words":
+        p, q = _meta((1000, 0)), _meta((64, 0))
+    elif case == "words differ":
+        q = _meta((64, 31))
+    elif case == "devices differ":
+        q = torch.zeros((64, 32), dtype=torch.int32)
+    elif case == "n 0":
+        n = 0
+    elif case == "n past the rows":
+        n = 1001
+    elif case == "sample 0":
+        S = 0
+    else:
+        S = port_entry.MAX_SAMPLE + 1
+    port_entry._check_launch(_meta((1000, 32)), _meta((64, 32)), 1000, 1024)
+    with pytest.raises(err):
+        port_entry._check_launch(p, q, n, S)
+
+
+@pytest.mark.parametrize("metric", [L2, L2INT])
+def test_other_metrics_keep_pairwise_mxu(metric, monkeypatch):
+    """``l2`` and ``l2int`` entries run ``metric.pairwise_mxu`` blocks and
+    count a plain call, never a kernel launch."""
+    rng = np.random.default_rng(12)
+    dtype = np.float32 if metric is L2 else np.int32
+    pts = rng.integers(-20, 20, size=(500, 6)).astype(dtype)
+    p = torch.from_numpy(pts)
+    q = p[::7].contiguous()
+    calls = []
+    real = type(metric).pairwise_mxu
+
+    def counted(self, a, b):
+        calls.append(a.shape[0])
+        return real(self, a, b)
+
+    monkeypatch.setattr(type(metric), "pairwise_mxu", counted)
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    got = sampled_entry(p, q, 500, sample_size=64, metric=metric)
+    assert calls == [q.shape[0]]
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        (before[0], before[1] + 1)
+    ids = strided_sample_ids(500, 64, device="cpu")
+    want = ids[torch.argmin(metric.pairwise(q, p[ids.long()]), dim=1)]
+    assert torch.equal(got, want)
+
+
+def _packed_key_entry(d: torch.Tensor) -> torch.Tensor:
+    """A model of the kernel's argmin (csrc/sampled_entry.cu): each
+    distance d at sample position pos as the 64-bit key (d << 32) | pos,
+    the least key of each row, its position."""
+    pos = torch.arange(d.shape[1], dtype=torch.int64)
+    keys = (d.long() << 32) | pos
+    return keys.min(dim=1).values & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("S,words", [(1, 32), (7, 1), (1024, 32),
+                                     (1025, 8), (65_536, 64)])
+def test_packed_key_rule_takes_the_lowest_position(S, words):
+    """The least packed key is the least distance and, among equal
+    distances, the lowest sample position: torch.argmin's rule, which the
+    plain version follows."""
+    rng = np.random.default_rng(S + words)
+    d = torch.from_numpy(rng.integers(0, 5, size=(64, S)).astype(np.int32))
+    d[0] = 2  # one distance throughout: position 0
+    d[1] = d[1].clamp(min=1)
+    d[1, -1] = d[1, S // 2] = 0  # two minima, the later one last
+    d = d * (32 * words // 4)  # up to the largest distance of the width
+    got = _packed_key_entry(d)
+    assert torch.equal(got, torch.argmin(d, dim=1))
+    assert int(got[0]) == 0
+    assert int(got[1]) == (S // 2 if S > 1 else 0)
+
+
+def test_knns_on_cpu_launches_no_entry_kernel():
+    """A CPU index's knns with an entry sample runs the plain entry once
+    a query batch and never the kernel."""
+    from hnsw_itu_tpu_torch.models import IndexOptions
+    from hnsw_itu_tpu_torch.models.hnsw import HNSWBuilder
+    from hnsw_itu_tpu_torch.utils import make_dataset
+
+    pts, qs = make_dataset(5, 600, 40)
+    b = HNSWBuilder(IndexOptions(ef_construction=24, connections=6,
+                                 max_connections=16, size=600,
+                                 batch_size=64, host_warmup=600),
+                    device="cpu")
+    b.extend_batched(pts)
+    idx = b.build()
+    idx.query_entry_sample, idx.query_batch = 64, 16
+    before = (sampled_entry.kernel_launches, sampled_entry.plain_calls)
+    res = idx.knns(qs, 10, 32)
+    assert res.ids.shape == (40, 10)
+    assert (sampled_entry.kernel_launches, sampled_entry.plain_calls) == \
+        (before[0], before[1] + 3)  # 40 queries in batches of 16
 
 
 def test_merge_min_k_matches_jax():
