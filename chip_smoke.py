@@ -2494,8 +2494,6 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
     call) against the 0.93 gate; every shard's kernel launch against its
     plain version at the headline ef; the merge against a numpy two-key
     merge; the general route beside it."""
-    from types import SimpleNamespace
-
     import numpy as np
     import torch
 
@@ -2565,7 +2563,8 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
         sweep[ef] = {"knns_ms": best * 1e3, "recall": r10,
                      "route": idx.last_route}
         results[ef] = res
-        log(f"[17] knns k={K} ef={ef} (max_steps {idx._steps_cap(ef)}, "
+        log(f"[17] knns k={K} ef={ef} (max_steps "
+            f"{idx.shards[0]._steps_cap(ef)}, "
             f"sampled entry {idx.query_entry_sample} a shard), route "
             f"{idx.last_route}: best of 3 {best * 1e3:.2f} ms for {nq} "
             f"queries = {nq / best:,.0f} QPS, recall@10 {r10:.4f}")
@@ -2589,12 +2588,11 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
         f"{mini_ref['knns_ms']:.2f} ms at ef={EF}")
 
     # every shard's launch against its plain version at the headline ef
-    steps = idx._steps_cap(ef_h)
+    steps = idx.shards[0]._steps_cap(ef_h)
     rec["kernel"] = []
     for s in range(shards):
-        view = SimpleNamespace(fused=idx.fused_s[s], points=idx.points_s[s],
-                               n=int(idx.ns[s]), metric=idx.metric)
-        r = fused_at_served_shapes(view, qs, dev, smi, max_steps=steps,
+        r = fused_at_served_shapes(idx.shards[s], qs, dev, smi,
+                                   max_steps=steps,
                                    tag=f"17 shard {s}", ef=ef_h)
         r["entry_ms"] = cuda_ms(r.pop("entry"), 10)
         rec["kernel"].append(r)
@@ -2627,10 +2625,13 @@ def phase_sharded(shards, shard_n, nq, dev, smi, mini_ref):
         raise AssertionError("the sharded merge != the numpy merge")
 
     # the general route beside it, on GENERAL_Q queries
-    fused_s, idx.fused_s = idx.fused_s, None
+    fused_s = idx.fused_s
+    for sh in idx.shards:
+        sh.fused = None
     g_ms, g = best_of_3(lambda: idx.knns(q[:GENERAL_Q], K, ef_h))
     g_route = idx.last_route
-    idx.fused_s = fused_s
+    for sh, t in zip(idx.shards, fused_s):
+        sh.fused = t
     g_ids = g.ids.cpu().numpy()
     agree = float((g_ids[:, 0] == res.ids[:GENERAL_Q, 0].cpu().numpy())
                   .mean())
@@ -3248,8 +3249,6 @@ def phase_flagship_cards(n, nq, cards, smi):
     the 0.93 gate, every shard's #1 against its plain version at ef=32 on
     every query, the sweep against the caller's loop, the merge against
     numpy. Returns (record, (pts, qs, gt_i)) for 19d."""
-    from types import SimpleNamespace
-
     import numpy as np
     import torch
 
@@ -3338,7 +3337,8 @@ def phase_flagship_cards(n, nq, cards, smi):
             ids, gt_i, K), "route": idx.last_route}
         results[ef] = res
         log(f"[19c] on {smi}: knns k={K} ef={ef} (max_steps "
-            f"{idx._steps_cap(ef)}, sampled entry {idx.query_entry_sample} "
+            f"{idx.shards[0]._steps_cap(ef)}, sampled entry "
+            f"{idx.query_entry_sample} "
             f"a shard), route {idx.last_route}: best of 3 "
             f"{best * 1e3:.2f} ms for {nq} queries = {nq / best:,.0f} QPS, "
             f"recall@10 {sweep[ef]['recall']:.4f}")
@@ -3367,14 +3367,13 @@ def phase_flagship_cards(n, nq, cards, smi):
     rec["workers"] = workers_vs_caller(idx, q, K, EF, "19c", smi)
 
     # every shard's #1 against its plain version at ef=32, on its card
-    steps = idx._steps_cap(EF)
+    steps = idx.shards[0]._steps_cap(EF)
     rec["kernel"] = []
     for s in range(S):
         dev = mesh.devices[s]
-        view = SimpleNamespace(fused=idx.fused_s[s], points=idx.points_s[s],
-                               n=int(idx.ns[s]), metric=idx.metric)
         with torch.cuda.device(dev):
-            r = fused_at_served_shapes(view, qs, dev, smi, max_steps=steps,
+            r = fused_at_served_shapes(idx.shards[s], qs, dev, smi,
+                                       max_steps=steps,
                                        tag=f"19c shard {s} on {dev}", ef=EF)
             r["entry_ms"] = cuda_ms(r.pop("entry"), 10)
         r["device"] = str(dev)

@@ -107,6 +107,16 @@ def _inline_query_fits(points: torch.Tensor, adj: torch.Tensor) -> bool:
     return need + _QUERY_MARGIN_BYTES <= _free_device_bytes(points.device)
 
 
+def _by_entry_distance(d0: torch.Tensor, *xs: torch.Tensor):
+    """``xs`` with rows sorted by entry distance ``d0`` [B] (stable), and
+    the function that puts its arguments' rows back in the callers' order.
+    Entry distance predicts search depth: sorted batches keep neighboring
+    warps (and the JAX kernel's lockstep blocks) at similar depths."""
+    order = torch.argsort(d0, stable=True)
+    inv = inverse_permutation(order)
+    return [x[order] for x in xs], lambda *ys: [y[inv] for y in ys]
+
+
 def _query_step_fused(points: torch.Tensor, fused: FusedTable,
                       qs: torch.Tensor, eps: torch.Tensor, *, k: int,
                       ef: int, max_steps: int):
@@ -120,17 +130,13 @@ def _query_step_fused(points: torch.Tensor, fused: FusedTable,
     id_bits = _id_bits(fused.cap)
     max_d = key_clamp(id_bits, words * 32)
     d0 = popcount_sum(points[eps.long()] ^ qs)
-    # entry distance predicts search depth; sorted batches keep neighboring
-    # warps (and the JAX kernel's lockstep blocks) at similar depths
-    order = torch.argsort(d0, stable=True)
-    inv = inverse_permutation(order)
-    qs, d0, eps = qs[order], d0[order], eps[order]
+    (qs, d0, eps), back = _by_entry_distance(d0, qs, d0, eps)
     init = (d0.clamp(max=max_d) << id_bits) | eps
     keys, vis, stp = fused_beam_search(
         fused, qs.contiguous(), init.contiguous(), ef=max(ef, k),
         id_bits=id_bits, max_d=max_d, max_steps=max_steps,
     )
-    keys, vis, stp = keys[inv], vis[inv], stp[inv]
+    keys, vis, stp = back(keys, vis, stp)
     kinf = (max_d + 1) << id_bits
     valid = keys < kinf
     d = torch.where(valid, keys >> id_bits, ID_INF)
@@ -193,12 +199,10 @@ def _query_step_mini(points: torch.Tensor, mini: torch.Tensor,
     eps = eps[:, None] if eps.dim() == 1 else eps
     # PREFIX distances of every seed: the kernel ranks on estimates
     d0 = popcount_sum(points[eps.long(), :mw] ^ qs[:, None, :mw])  # [B, E]
-    # entry-distance sort: see _query_step_fused
-    order = torch.argsort(d0.min(dim=1).values, stable=True)
-    inv = inverse_permutation(order)
-    qs = qs[order].contiguous()
+    (qs, d0, eps), back = _by_entry_distance(d0.min(dim=1).values, qs, d0,
+                                             eps)
     _, ids, vis, stp = mini_beam_search(
-        mini, qs, d0[order], eps[order], ef=max(ef, k), mini_words=mw,
+        mini, qs, d0, eps, ef=max(ef, k), mini_words=mw,
         max_steps=max_steps, tie_bits=tie_bits,
     )
     with span(timings, "knns.rerank", qs.device):
@@ -207,17 +211,18 @@ def _query_step_mini(points: torch.Tensor, mini: torch.Tensor,
         else:
             dk, ik = rerank_exact(points, qs, ids, k=k)
     valid = ik < IINF
-    d = torch.where(valid, dk, ID_INF)[inv]
-    i = torch.where(valid, ik, ID_INF)[inv]
-    return d, i, vis[inv], stp[inv]
+    return back(torch.where(valid, dk, ID_INF), torch.where(valid, ik, ID_INF),
+                vis, stp)
 
 
 class QueryIndex:
     """The query side NSW and HNSW share, as the JAX classes do: one
     base-layer table built once by ``enable_inline``, the route choice,
-    ``knns`` and ``search``. A subclass holds ``device``, ``points``,
-    ``n``, ``ep``, ``metric`` and its base graph (``_base()``), and gives
-    the entries used without a sampled entry (``_walk_entries``)."""
+    ``knns`` (one ``_step`` a query batch, the step every shard of a
+    ``ShardedNSW`` runs too) and ``search``. A subclass holds ``device``,
+    ``points``, ``n``, ``ep``, ``metric`` and its base graph (``_base()``),
+    and gives the entries used without a sampled entry
+    (``_walk_entries``)."""
 
     def _init_query_state(self) -> None:
         self.timings = None  # dict: CUDA event pairs by span (knns.*)
@@ -336,61 +341,61 @@ class QueryIndex:
             return "mini"
         return "general"
 
-    def _entries(self, q: torch.Tensor, max_steps: int, beams: int = 1):
-        """Entries of the base search: the sampled entry (its top
-        ``beams`` when above 1) when ``query_entry_sample`` > 0, else
-        ``_walk_entries``."""
-        if self.query_entry_sample <= 0:
-            return self._walk_entries(q, max_steps)
-        kw = dict(sample_size=self.query_entry_sample, metric=self.metric)
-        if beams > 1:
-            return sampled_entry_topk(self.points, q, self.n, beams=beams,
-                                      **kw)[0]
-        return sampled_entry(self.points, q, self.n, **kw)
-
     def knns(self, queries, k: int, ef: int) -> KnnResult:
-        """k nearest neighbors of every query: the entries, then the
-        base-layer search at beam width max(ef, k) on the route ``route``
-        picks. Spans (``utils/instrument.py``): the profiler range "knns"
-        around the call; "knns.entry" each query batch's entries and, on
-        the mini route, "knns.rerank" its rerank (CUDA event pairs in
-        ``timings``)."""
+        """k nearest neighbors of every query: ``_step`` on each query
+        batch, on the route ``route`` picks. The profiler range "knns"
+        (``utils/instrument.py``) spans the call."""
         if self.ep is None:
             raise ValueError("empty index")
-        t, dev = self.timings, self.device
         with host_range("knns"):
-            qs = as_points(queries, dev)
+            qs = as_points(queries, self.device)
             nq = qs.shape[0]
             route = self.route(k, ef)
-            steps = self._steps_cap(ef)
-            beams = self.query_entry_beams if route == "mini" else 1
-            out = []
-            for s in range(0, nq, self.query_batch):
-                q = qs[s : s + self.query_batch]
-                with span(t, "knns.entry", dev):
-                    eps = self._entries(q, steps, beams)
-                if route == "fused":
-                    out.append(_query_step_fused(
-                        self.points, self.fused, q, eps, k=k, ef=ef,
-                        max_steps=steps))
-                elif route == "mini":
-                    out.append(_query_step_mini(
-                        self.points, self.mini, q, eps, k=k, ef=ef,
-                        max_steps=steps, adj=self._base().adj,
-                        hop=self.query_hop, tie_bits=self._tie_bits(),
-                        timings=t))
-                else:
-                    out.append(self._query_step_general(
-                        q, eps, k=k, ef=ef, max_steps=steps))
+            out = [self._step(qs[s : s + self.query_batch], k, ef, route)
+                   for s in range(0, nq, self.query_batch)]
             d, i, vis, st = (xs[0] if len(xs) == 1 else torch.cat(xs)
                              for xs in zip(*out))
             self.last_stats = LazyStats(vis, st, nq)
             self.last_route = route
-            if self.id_map is not None:  # reordered index: original ids out
-                top = self.id_map.shape[0] - 1
-                mapped = self.id_map[i.clamp(0, top).long()]
-                i = torch.where(i == ID_INF, i, mapped)
-            return KnnResult(d, i)
+            return KnnResult(d, self._original_ids(i))
+
+    def _step(self, q: torch.Tensor, k: int, ef: int, route: str):
+        """One query batch on ``route`` (``route()``'s pick): the entries
+        (span "knns.entry": the sampled entry, on the mini route its top
+        ``query_entry_beams``, or ``_walk_entries``), then the base search
+        at beam width max(ef, k) and at most ``_steps_cap(ef)`` steps.
+        Returns (dists, ids [B, k] in this index's ids, visited, steps
+        int32[B])."""
+        steps, sample = self._steps_cap(ef), self.query_entry_sample
+        beams = self.query_entry_beams if route == "mini" else 1
+        with span(self.timings, "knns.entry", self.device):
+            if sample <= 0:
+                eps = self._walk_entries(q, steps)
+            elif beams > 1:
+                eps = sampled_entry_topk(self.points, q, self.n, beams=beams,
+                                         sample_size=sample,
+                                         metric=self.metric)[0]
+            else:
+                eps = sampled_entry(self.points, q, self.n,
+                                    sample_size=sample, metric=self.metric)
+        if route == "fused":
+            return _query_step_fused(self.points, self.fused, q, eps, k=k,
+                                     ef=ef, max_steps=steps)
+        if route == "mini":
+            return _query_step_mini(
+                self.points, self.mini, q, eps, k=k, ef=ef, max_steps=steps,
+                adj=self._base().adj, hop=self.query_hop,
+                tie_bits=self._tie_bits(), timings=self.timings)
+        return self._query_step_general(q, eps, k=k, ef=ef, max_steps=steps)
+
+    def _original_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """``ids`` as the dataset's: through ``id_map`` (moved to the ids'
+        device) on a reordered index, ``ID_INF`` kept."""
+        if self.id_map is None:
+            return ids
+        id_map = self.id_map.to(ids.device)
+        mapped = id_map[ids.clamp(0, id_map.shape[0] - 1).long()]
+        return torch.where(ids == ID_INF, ids, mapped)
 
     def _query_step_general(self, q, eps, *, k: int, ef: int,
                             max_steps: int):

@@ -6,8 +6,9 @@ Two strategies, as in the JAX package:
 * **index sharding** (``ShardedNSW``, ``ShardedHNSW``): the points are
   split into S contiguous shards; each shard builds an independent flat
   subgraph on its own device (``sharded_build_step`` per chunk, entry
-  fixed at the shard's row 0) and, at query time, searches the whole
-  batch; the per-shard top-k are merged by a two-key (distance, id) sort.
+  fixed at the shard's row 0) and, at query time, is an ``NSW`` that
+  searches the whole batch through ``QueryIndex._step``; the per-shard
+  top-k are merged by a two-key (distance, id) sort.
   This serves indexes past one fused table: each shard stays below the
   fused kernel's 2^21-id packed-key limit.
 * **query sharding** (``knns_query_sharded``): a single-device NSW or HNSW
@@ -61,9 +62,9 @@ from ..graph import GraphArrays
 from ..models import _build
 from ..models.base import ID_INF, IndexOptions, KnnResult, search_one
 from ..models.hnsw import Level, descent_eps
-from ..models.nsw import _fused_query_eligible, _query_step_fused
+from ..models.nsw import NSW, _fused_query_eligible
 from ..ops.entry import sampled_entry
-from ..ops.fused_search import MAX_EF, materialize_fused
+from ..ops.fused_search import materialize_fused
 from ..ops.metrics import as_points, get_metric
 from ..ops.search import _sort2, batched_beam_search
 from ..utils.instrument import to_device
@@ -88,22 +89,20 @@ def _insert_rows(points, adj, deg, spill, ep: int, n: int, chunk, rows, *,
                  timings=None):
     """One shard's chunk over already-written points: the rows ``rows``
     (host ints, ascending) of ``chunk`` take ids ``n + rows``, are searched
-    from ``ep`` and linked in; ``adj``, ``deg`` and ``spill`` change in
-    place (``timings``: CUDA event pairs by phase, ``models/_build.py``).
-    Returns (row count after the chunk, reverse edges dropped as an int32
-    scalar tensor)."""
+    from ``ep`` and linked in (``_build.chunk_step`` at fixed entries);
+    ``adj``, ``deg`` and ``spill`` change in place (``timings``: CUDA
+    event pairs by phase, ``models/_build.py``). Returns (row count after
+    the chunk, reverse edges dropped as an int32 scalar tensor)."""
     dev = adj.device
     if len(rows) == 0:
         return n, torch.zeros((), dtype=torch.int32, device=dev)
     r = to_device(torch.from_numpy(np.asarray(rows, np.int64)), dev)
     qs, new_ids = chunk[r], (r + n).to(torch.int32)
     eps = torch.full((len(rows),), ep, dtype=torch.int32, device=dev)
-    sel, _ = _build.search_select(points, None, adj, qs, eps, efc=efc, m=m,
-                                  expand=expand, timings=timings,
-                                  metric=metric)
-    _, _, dropped = _build.apply_inserts(
-        points, None, GraphArrays(adj, deg), new_ids, sel, spill,
-        prune_budget=prune_budget, timings=timings, metric=metric)
+    _, _, dropped = _build.chunk_step(
+        points, None, GraphArrays(adj, deg), spill, qs, new_ids, n, eps,
+        efc=efc, m=m, expand=expand, prune_budget=prune_budget,
+        timings=timings, metric=metric)
     return n + len(rows), dropped
 
 
@@ -204,33 +203,54 @@ def _topk_group(view, io, device, shards, args) -> None:
     query buffer of this card, then its shards' result tensors), written
     into its result tensors."""
     q, outs = io
-    for s, out, (k, ef, route, settings) in zip(shards, outs, args):
-        view.__dict__.update(settings)
+    k, ef, route, settings = args[0]  # the same for every shard
+    for name, value in settings.items():
+        setattr(view, name, value)
+    for s, out in zip(shards, outs):
         _write(out, *view._shard_topk(s, q, k, ef, route))
+
+
+def _knob(name: str):
+    """A query knob the shards hold (``QueryIndex``'s attribute ``name``):
+    read from the first shard, set on every shard the index holds."""
+
+    def put(idx, value) -> None:
+        for sh in idx.shards:
+            if sh is not None:  # a worker's view holds its card's only
+                setattr(sh, name, value)
+
+    return property(lambda idx: getattr(idx.shards[0], name), put)
 
 
 class ShardedNSW:
     """Index-sharded flat graph: S independent subgraphs, merged top-k.
-    Shard ``s`` keeps its tensors on ``mesh.devices[s]``; ``eps``,
-    ``offsets`` and ``ns`` are host int32[S]."""
+    Shard ``s`` is an ``NSW`` over its own tensors on ``mesh.devices[s]``
+    (``shards[s]``), entered at its local entry; it owns the shard's
+    state, which ``points_s``, ``adj_s``, ``deg_s``, ``fused_s`` and the
+    host int32[S] ``eps`` and ``ns`` show read-only. ``offsets``: the
+    shards' global-id offsets, host int32[S]."""
+
+    query_expand = _knob("query_expand")
+    query_entry_sample = _knob("query_entry_sample")  # >0: sampled entry
+    max_steps = _knob("max_steps")  # None = auto (2*ef, floor 64)
+    points_s = property(lambda self: tuple(sh.points for sh in self.shards))
+    adj_s = property(lambda self: tuple(sh.graph.adj for sh in self.shards))
+    deg_s = property(lambda self: tuple(sh.graph.deg for sh in self.shards))
+    eps = property(lambda self: np.int32([sh.ep for sh in self.shards]))
+    ns = property(lambda self: np.int32([sh.n for sh in self.shards]))
 
     def __init__(self, mesh: Mesh, points_s, graphs_s, eps, offsets, ns,
                  metric, opts):
         self.mesh = mesh
-        self.points_s = list(points_s)  # S x [cap_s, D]
-        self.adj_s = list(graphs_s[0])  # S x [cap_s, W]
-        self.deg_s = list(graphs_s[1])
-        self.eps = np.asarray(eps, np.int32)  # local entry points
-        self.offsets = np.asarray(offsets, np.int32)  # global-id offsets
-        self.ns = np.asarray(ns, np.int32)
-        for s, dev in enumerate(mesh.devices):
-            _check_on(dev, self.points_s[s], self.adj_s[s], self.deg_s[s])
         self.metric = _metric(metric)
         self.opts = opts
-        self.query_expand = 1
-        self.query_entry_sample = 0  # >0: per-shard sampled entry
-        self.max_steps = None  # None = auto (2*ef, floor 64)
-        self.fused_s = None  # per-shard fused tables (enable_inline)
+        for s, dev in enumerate(mesh.devices):
+            _check_on(dev, points_s[s], graphs_s[0][s], graphs_s[1][s])
+        self.shards = [NSW(p, n, GraphArrays(a, d), ep, self.metric, opts,
+                           device=dev)
+                       for p, a, d, ep, n, dev in zip(
+                           points_s, *graphs_s, eps, ns, mesh.devices)]
+        self.offsets = np.asarray(offsets, np.int32)
         self.last_route = None  # "fused" or "general": the last knns
         # per-shard int32 scalar tensors of reverse edges lost (set by
         # build; None for indexes assembled by hand)
@@ -255,9 +275,6 @@ class ShardedNSW:
         if self.edge_drops_s is None:
             return 0
         return sum(int(d) for d in self.edge_drops_s)
-
-    def _steps_cap(self, ef: int) -> int:
-        return self.max_steps if self.max_steps else max(2 * ef, 64)
 
     @classmethod
     def build(cls, points, opts: IndexOptions, metric="hamming",
@@ -318,6 +335,13 @@ class ShardedNSW:
     def size(self) -> int:
         return int(self.ns.sum())
 
+    @property
+    def fused_s(self):
+        """The shards' fused tables (``enable_inline``), or None."""
+        if self.shards[0].fused is None:
+            return None
+        return tuple(sh.fused for sh in self.shards)
+
     def enable_inline(self) -> None:
         """Materialize one fused table per shard on its device, once, where
         the fused kernel serves every shard's shapes and all the tables
@@ -330,50 +354,32 @@ class ShardedNSW:
         for s, dev in enumerate(self.mesh.devices):
             per_device.setdefault(dev, []).append(s)
         for shards in per_device.values():
-            s = shards[0]
-            if not _fused_query_eligible(self.points_s[s], self.adj_s[s],
+            sh = self.shards[shards[0]]
+            if not _fused_query_eligible(sh.points, sh.graph.adj,
                                          self.metric, tables=len(shards)):
                 return
-        self.fused_s = [materialize_fused(p, a)
-                        for p, a in zip(self.points_s, self.adj_s)]
+        for sh in self.shards:
+            sh.fused = materialize_fused(sh.points, sh.graph.adj)
 
     def route(self, k: int, ef: int) -> str:
-        """"fused" where every shard has its table, ``max(ef, k) <= 128``
-        and ``query_expand == 1``; else "general"."""
-        if (self.fused_s is not None and max(ef, k) <= MAX_EF
-                and self.query_expand == 1):
-            return "fused"
-        return "general"
+        """The shards' route (``QueryIndex.route``): every shard has its
+        fused table, or none has."""
+        return self.shards[0].route(k, ef)
 
     def _shard_topk(self, s: int, q, k: int, ef: int, route: str):
-        """Shard ``s``'s top-k of queries ``q`` (on its device) in global
-        ids: (dists [B, k], ids int32[B, k])."""
-        points, n = self.points_s[s], int(self.ns[s])
-        B = q.shape[0]
-        if n == 0:
+        """Shard ``s``'s top-k of queries ``q`` (on its device) on
+        ``route``, its ``QueryIndex._step``, in global ids: (dists [B, k],
+        ids int32[B, k]); an empty shard gives only (``metric.inf``,
+        ``ID_INF``)."""
+        sh = self.shards[s]
+        if sh.n == 0:
+            B = q.shape[0]
             return (torch.full((B, k), self.metric.inf,
                                dtype=self.metric.dist_dtype,
                                device=q.device),
                     torch.full((B, k), ID_INF, dtype=torch.int32,
                                device=q.device))
-        steps = self._steps_cap(ef)
-        if self.query_entry_sample > 0:
-            eps = sampled_entry(points, q, n,
-                                sample_size=self.query_entry_sample,
-                                metric=self.metric)
-        else:
-            eps = torch.full((B,), int(self.eps[s]), dtype=torch.int32,
-                             device=q.device)
-        if route == "fused":
-            d, i, _, _ = _query_step_fused(points, self.fused_s[s], q, eps,
-                                           k=k, ef=ef, max_steps=steps)
-        else:
-            adj = self.adj_s[s]
-            res = batched_beam_search(
-                lambda ids: points[ids], adj, q, eps, ef=max(ef, k),
-                metric=self.metric, capacity=adj.shape[0],
-                expand=self.query_expand, max_steps=steps)
-            d, i = res.dists[:, :k], res.ids[:, :k]
+        d, i, _, _ = sh._step(q, k, ef, route)
         valid = i != ID_INF
         return (torch.where(valid, d, self.metric.inf),
                 torch.where(valid, i + int(self.offsets[s]), ID_INF))
@@ -407,22 +413,18 @@ class ShardedNSW:
 
     def _held(self) -> list:
         """Where the tensors a query reads lie, shard by shard."""
-        fused = self.fused_s or [()] * self.mesh.size
         return [(t.data_ptr(), t.shape, t.stride(), t.dtype)
-                for ts in zip(self.points_s, self.adj_s, fused)
-                for t in (ts[0], ts[1], *ts[2])]
+                for sh in self.shards
+                for t in (sh.points, sh.graph.adj, *(sh.fused or ()))]
 
     def _group_view(self, shards) -> "ShardedNSW":
-        """A shallow copy of this index holding only ``shards``' query
-        tensors (the others None), for a worker to bind."""
+        """A shallow copy of this index holding only ``shards`` (the
+        others None), for a worker to bind."""
         view = object.__new__(type(self))
         view.__dict__.update(self.__dict__, _pool=None, _bound=None,
-                             _io=None, deg_s=None, edge_drops_s=None)
-        for name in ("points_s", "adj_s", "fused_s"):
-            ts = getattr(self, name)
-            if ts is not None:
-                setattr(view, name, [t if s in shards else None
-                                     for s, t in enumerate(ts)])
+                             _io=None, edge_drops_s=None,
+                             shards=[sh if s in shards else None
+                                     for s, sh in enumerate(self.shards)])
         return view
 
     def _bind(self, pool: CardPool) -> int:
@@ -616,14 +618,4 @@ def knns_query_sharded(index, queries, k: int, ef: int,
             pool.close()
     d = torch.cat([o[0].to(lead) for o in out])[:nq]
     i = torch.cat([o[1].to(lead) for o in out])[:nq]
-    return KnnResult(d, _map_back(index, i))
-
-
-def _map_back(index, ids: torch.Tensor) -> torch.Tensor:
-    """Internal -> original dataset ids for a reordered index (the
-    ``id_map`` remap single-device ``knns`` applies), keeping ``ID_INF``."""
-    if getattr(index, "id_map", None) is None:
-        return ids
-    id_map = index.id_map.to(ids.device)
-    mapped = id_map[ids.clamp(0, id_map.shape[0] - 1).long()]
-    return torch.where(ids == ID_INF, ids, mapped)
+    return KnnResult(d, index._original_ids(i))

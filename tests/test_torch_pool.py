@@ -157,13 +157,13 @@ def test_a_workers_error_names_its_shards(data, per_shard_workers, pair):
     _, qs = data
     idx, ref = pair
     want = idx.knns(qs, K, 32)
-    good = idx.points_s[2]
-    idx.points_s[2] = good[:, :3].contiguous()
+    good = idx.shards[2].points
+    idx.shards[2].points = good[:, :3].contiguous()
     with pytest.raises(RuntimeError) as e:
         idx.knns(qs, K, 32)
     assert e.value.__notes__[-1] == "in shards [2] of 4, on cpu"
     assert "_shard_topk" in e.value.__notes__[0]
-    idx.points_s[2] = good
+    idx.shards[2].points = good
     assert_same(idx.knns(qs, K, 32), want)
 
 

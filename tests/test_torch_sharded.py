@@ -25,8 +25,10 @@ from hnsw_itu_tpu.parallel import sharded_build_step as jax_build_step
 from hnsw_itu_tpu_torch.graph import GraphArrays
 from hnsw_itu_tpu_torch.models import IndexOptions
 from hnsw_itu_tpu_torch.models import _build
+from hnsw_itu_tpu_torch.models.base import ID_INF
 from hnsw_itu_tpu_torch.models.nsw import NSW, NSWBuilder
 from hnsw_itu_tpu_torch.ops.fused_search import fused_beam_search
+from hnsw_itu_tpu_torch.ops.metrics import as_points
 from hnsw_itu_tpu_torch.parallel import (AXIS, ShardedHNSW, ShardedNSW,
                                          knns_query_sharded, make_mesh,
                                          replicate, shard_leading,
@@ -323,7 +325,8 @@ def test_sharded_fused_knns_matches_jax(data, monkeypatch):
     assert (np.diff(d, axis=1) >= 0).all()
     assert ((ids >= 0) & (ids < N)).all()
     # the general route on the same index agrees on the top hit
-    pidx.fused_s = None
+    for sh in pidx.shards:
+        sh.fused = None
     assert (pidx.knns(qs, K, 48).ids[:, 0] == got.ids[:, 0]).all()
 
 
@@ -339,6 +342,40 @@ def test_sharded_slice_matches_jax(data, monkeypatch):
     for ef in (16, 32):
         assert_same(pidx.knns(qs, K, ef), jidx.knns(qs, K, ef))
     assert pidx.last_route == "fused"
+
+
+@pytest.mark.parametrize("route,sample", [
+    ("general", 0), ("general", 1024), ("fused", 0), ("fused", 1024)])
+def test_shard_topk_is_the_shards_own_knns(data, route, sample):
+    """The seam between a sharded index and the one-card query step: each
+    shard's ``_shard_topk`` equals ``knns`` of an NSW made apart over that
+    shard's tensors (at its entry, with its own fused table, the sharded
+    index's knobs set on it), its ids offset by the shard's: the knobs
+    reach every shard."""
+    pts, qs = data
+    jidx, _ = built_hnsw(pts)
+    pidx = carried(jidx, ShardedHNSW)
+    # two steps: the answers still depend on the entry
+    pidx.query_entry_sample, pidx.max_steps = sample, 2
+    if route == "fused":
+        pidx.enable_inline()
+    assert pidx.route(K, 32) == route
+    q = as_points(qs, "cpu")
+    for s in range(S):
+        one = NSW(pidx.points_s[s], pidx.ns[s],
+                  GraphArrays(pidx.adj_s[s], pidx.deg_s[s]), pidx.eps[s],
+                  "hamming", device="cpu")
+        one.query_entry_sample, one.max_steps = sample, 2
+        if route == "fused":
+            one.enable_inline()
+        want = one.knns(q, K, 32)
+        assert one.last_route == route
+        d, i = pidx._shard_topk(s, q, K, 32, route)
+        valid = want.ids != ID_INF
+        assert torch.equal(i, torch.where(
+            valid, want.ids + int(pidx.offsets[s]), ID_INF))
+        assert torch.equal(d, torch.where(valid, want.dists,
+                                          pidx.metric.inf))
 
 
 def test_shard_independence(data):
