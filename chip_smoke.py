@@ -207,6 +207,12 @@ cards. Phases, each printed as it ends:
      attributed to the uploads, the pool's start, each card's work, the
      pool's close and the merge.
 
+In phases 5, 7, 11 and 17 every query batch whose step replays its CUDA
+graph (``hnsw_itu_tpu_torch/models/step_graphs.py``) is held afterwards
+to the eager step of the same batch under the settings it ran with
+(dists, ids, visited and steps equal, else the phase raises), and the
+phase logs its captures, replays and eager steps (``ReplayCheck``).
+
 Every phase's seconds are logged (``phase seconds``).
 
 The line before the last is the kernels' JSON record (with ``--cards 4``
@@ -397,6 +403,92 @@ def max_abs_diff(got, want) -> int:
     """Largest |got - want| over tuples of int32 tensors (0 = equal)."""
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
+
+
+class ReplayCheck:
+    """Phase ``tag``'s query steps: the step graphs' counters
+    (``StepGraphs.captures``, ``.replays``, ``.eager_steps``), and every
+    step that replayed a graph held, when the phase ends, to the eager
+    step of the same batch under the settings it ran with: dists, ids,
+    visited and steps equal (raises otherwise, and where ``replays`` asks
+    for replays and none ran). The eager steps run with ``timings`` on,
+    which no graph serves; their counts are taken back, so the phase's
+    launch counts stay its own."""
+
+    SETTINGS = ("query_entry_sample", "query_entry_beams", "query_hop",
+                "query_tie", "max_steps")
+
+    def __init__(self, tag, replays=True):
+        self.tag, self.want_replays = tag, replays
+
+    def __enter__(self):
+        from hnsw_itu_tpu_torch.models.nsw import QueryIndex
+        from hnsw_itu_tpu_torch.models.step_graphs import StepGraphs
+
+        self.counters = lambda: (StepGraphs.captures, StepGraphs.replays,
+                                 StepGraphs.eager_steps)
+        self.before, self.replayed = self.counters(), []
+        self.step = QueryIndex._step
+        check = self
+
+        def step(index, q, k, ef, route):
+            n = StepGraphs.replays
+            out = check.step(index, q, k, ef, route)
+            if StepGraphs.replays != n:
+                check.replayed.append((
+                    index, q.clone(), k, ef, route,
+                    {a: getattr(index, a) for a in check.SETTINGS}, out))
+            return out
+
+        QueryIndex._step = step
+        return self
+
+    def __exit__(self, kind, *exc):
+        from hnsw_itu_tpu_torch.models.nsw import QueryIndex
+
+        QueryIndex._step = self.step
+        if kind is None:
+            self.verify()
+        return False
+
+    def _eager(self, index, q, k, ef, route, settings):
+        from hnsw_itu_tpu_torch.models.step_graphs import (STEP_COUNTERS,
+                                                           StepGraphs,
+                                                           taken_back)
+
+        now = {a: getattr(index, a) for a in self.SETTINGS}
+        timings = index.timings
+        try:
+            for a, v in settings.items():
+                setattr(index, a, v)
+            index.timings = {}
+            with taken_back(STEP_COUNTERS + ((StepGraphs, "eager_steps"),)):
+                return self.step(index, q, k, ef, route)
+        finally:
+            for a, v in now.items():
+                setattr(index, a, v)
+            index.timings = timings
+
+    def verify(self):
+        captures, replays, eager = (a - b for a, b in zip(self.counters(),
+                                                           self.before))
+        diff = dict.fromkeys(("dists", "ids", "visited", "steps"), 0)
+        for index, q, k, ef, route, settings, got in self.replayed:
+            want = self._eager(index, q, k, ef, route, settings)
+            for name, g, w in zip(diff, got, want):
+                diff[name] += int((g != w).sum()) if g.shape == w.shape \
+                    else g.numel()
+        self.record = {"captures": captures, "replays": replays,
+                       "eager_steps": eager, "checked": len(self.replayed),
+                       "differing": diff}
+        log(f"[{self.tag}] step graphs: {captures} captures, {replays} "
+            f"replays, {eager} eager steps; {len(self.replayed)} replayed "
+            "steps held to the eager step of the same batch: "
+            + ", ".join(f"{v} {k}" for k, v in diff.items())
+            + " differing")
+        if any(diff.values()) or (self.want_replays and not self.replayed):
+            raise AssertionError(f"[{self.tag}] step graph replays: "
+                                 f"{self.record}")
 
 
 def device_breakdown(fn, calls: int = 3, top: int = 6):
@@ -3785,7 +3877,8 @@ def main(argv=None) -> int:
     lap("3")
     gt_i = phase_oracle(pts, qs, dev)
     lap("4")
-    knns_s, entry_5 = phase_query(index, qs, gt_i, dev)
+    with ReplayCheck("5"):
+        knns_s, entry_5 = phase_query(index, qs, gt_i, dev)
     lap("5")
     launches = fused_beam_search.kernel_launches
     plain = fused_beam_search.plain_calls
@@ -3812,7 +3905,8 @@ def main(argv=None) -> int:
     mini_beam_search.kernel_launches = 0
     mini_beam_search.plain_calls = 0
     fused_before = fused_beam_search.kernel_launches
-    mini_q, entry_7 = phase_mini_query(index, qs, gt_i, dev)
+    with ReplayCheck("7"):
+        mini_q, entry_7 = phase_mini_query(index, qs, gt_i, dev)
     mini_launches = mini_beam_search.kernel_launches
     mini_plain = mini_beam_search.plain_calls
     log(f"[7] mini path: kernel_launches {mini_launches}, plain_calls "
@@ -3839,7 +3933,8 @@ def main(argv=None) -> int:
     lap("9")
     bk = phase_build_kernels(index, qs, dev, smi)
     lap("10")
-    served = phase_build_query(index, pts, qs, dev, smi)
+    with ReplayCheck("11"):
+        served = phase_build_query(index, pts, qs, dev, smi)
     gt_i, gt_d = served.pop("gt_i"), served.pop("gt_d")
     lap("11")
     # phase 13 on the 1M device-built index
@@ -3849,7 +3944,9 @@ def main(argv=None) -> int:
     reorder_fused = phase_reorder_fused(index, qs, gt_i, gt_d, dev, smi)
     lap("15, fused")
     # phase 17 (c) on the same index: query sharding
-    qsharded = phase_query_sharded(index, qs, gt_i, dev, args.shards)
+    with ReplayCheck("17c", replays=False):  # the general route
+        qsharded = phase_query_sharded(index, qs, gt_i, dev,
+                                       args.shards)
     lap("17c")
     del index
     gc.collect()
@@ -3896,8 +3993,9 @@ def main(argv=None) -> int:
     # phase 17: index sharding; each part zeroes its kernels' counts
     indep = phase_shard_independence(dev, args.shards)
     lap("17b")
-    sharded = phase_sharded(args.shards, args.shard_n, args.nq, dev, smi,
-                            mini_q[EF])
+    with ReplayCheck("17"):
+        sharded = phase_sharded(args.shards, args.shard_n, args.nq, dev,
+                                smi, mini_q[EF])
     lap("17")
     gc.collect()
     torch.cuda.empty_cache()

@@ -49,6 +49,7 @@ from ..ops.topk import inverse_permutation
 from ..utils.instrument import host_range, span, to_device
 from . import _build
 from .base import ID_INF, IndexOptions, KnnResult, LazyStats, search_one
+from .step_graphs import StepGraphs
 
 # device memory left free beside the fused or mini table for the query
 # batch's temporaries (entry block, sort, keys, rerank gathers)
@@ -219,9 +220,10 @@ class QueryIndex:
     """The query side NSW and HNSW share, as the JAX classes do: one
     base-layer table built once by ``enable_inline``, the route choice,
     ``knns`` (one ``_step`` a query batch, the step every shard of a
-    ``ShardedNSW`` runs too) and ``search``. A subclass holds ``device``,
-    ``points``, ``n``, ``ep``, ``metric`` and its base graph (``_base()``),
-    and gives the entries used without a sampled entry
+    ``ShardedNSW`` runs too; on a card a table route's step replays as
+    one CUDA graph, ``step_graphs.py``) and ``search``. A subclass holds
+    ``device``, ``points``, ``n``, ``ep``, ``metric`` and its base graph
+    (``_base()``), and gives the entries used without a sampled entry
     (``_walk_entries``)."""
 
     def _init_query_state(self) -> None:
@@ -244,6 +246,7 @@ class QueryIndex:
         self.mini_words = 0
         self.mini_W = 0
         self.id_map = None  # int32[cap] new->original id (set by reorder)
+        self._graphs = StepGraphs()  # the query step's CUDA graphs
 
     def _base(self) -> GraphArrays:
         raise NotImplementedError
@@ -360,12 +363,41 @@ class QueryIndex:
             return KnnResult(d, self._original_ids(i))
 
     def _step(self, q: torch.Tensor, k: int, ef: int, route: str):
-        """One query batch on ``route`` (``route()``'s pick): the entries
-        (span "knns.entry": the sampled entry, on the mini route its top
-        ``query_entry_beams``, or ``_walk_entries``), then the base search
-        at beam width max(ef, k) and at most ``_steps_cap(ef)`` steps.
-        Returns (dists, ids [B, k] in this index's ids, visited, steps
-        int32[B])."""
+        """One query batch on ``route`` (``route()``'s pick): the replay of
+        its CUDA graph where ``_graph_key`` gives a key
+        (``step_graphs.py``: captured on the key's second batch), else
+        ``_step_eager``. Returns (dists, ids [B, k] in this index's ids,
+        visited, steps int32[B])."""
+        return self._graphs.run(self._graph_key(q, k, ef, route), q,
+                                lambda x: self._step_eager(x, k, ef, route))
+
+    def _graph_key(self, q: torch.Tensor, k: int, ef: int, route: str):
+        """The key of this batch's step graph: everything a table route's
+        step bakes into its launches (the route, the batch's shape, k, ef,
+        the steps cap, the entry settings, the tie bits, ``n``, and where
+        each tensor it reads lies and its shape: the points, the fused
+        table or the mini table and the base graph). None where the step
+        runs eager: the general route (its host waits cannot be
+        captured), CPU tensors, ``timings`` on (its event pairs need the
+        eager ops), the walk entry (it reads ``ep`` and the levels, and
+        the descent's general search waits on the host) and an empty
+        batch."""
+        if route == "general" or q.device.type != "cuda" \
+                or self.timings is not None \
+                or self.query_entry_sample <= 0 or q.shape[0] == 0:
+            return None
+        tensors = (self.points, *self.fused) if route == "fused" \
+            else (self.points, self.mini, self._base().adj)
+        return (route, q.device, q.dtype, tuple(q.shape), k, ef,
+                self._steps_cap(ef), self.query_entry_sample,
+                self.query_entry_beams, self.query_hop, self._tie_bits(),
+                self.n, *((t.data_ptr(), tuple(t.shape)) for t in tensors))
+
+    def _step_eager(self, q: torch.Tensor, k: int, ef: int, route: str):
+        """``_step`` op by op: the entries (span "knns.entry": the sampled
+        entry, on the mini route its top ``query_entry_beams``, or
+        ``_walk_entries``), then the base search at beam width max(ef, k)
+        and at most ``_steps_cap(ef)`` steps."""
         steps, sample = self._steps_cap(ef), self.query_entry_sample
         beams = self.query_entry_beams if route == "mini" else 1
         with span(self.timings, "knns.entry", self.device):

@@ -191,3 +191,34 @@ def test_build_readers():
         assert r({"kind": "build", "chunks": 2}) is None
         assert r(_rec("build", [("portbench.group", 100.0, 200.0)],
                       device)) is None
+
+
+def test_host_launches_count_a_graph_launch_as_one():
+    """``host_launches.knns``: the launch calls inside each
+    ``portbench.call``, a graph launch one of them, averaged over the
+    calls; a launch outside every call is not counted."""
+    read = harness.reader("host_launches.knns").read
+    host, device = _calls()
+    # call 1: three kernels and a copy; call 2: a kernel and a copy
+    assert read(_rec("query", host, device)) == pytest.approx(3.0)
+    graphed = [("portbench.call", 100.0, 150.0),
+               ("hnsw.knns", 100.0, 140.0),
+               ("cudaMemcpyAsync", 101.0, 102.0),
+               ("hnsw.knns.graph", 103.0, 106.0),
+               ("cudaGraphLaunch", 104.0, 105.0),
+               ("cudaMemcpyAsync", 141.0, 144.0),
+               ("portbench.call", 150.0, 200.0),
+               ("hnsw.knns", 150.0, 165.0),
+               ("hnsw.knns.graph", 151.0, 154.0),
+               ("cudaGraphLaunch_v10000", 152.0, 153.0),
+               ("cudaLaunchKernel", 201.0, 202.0)]  # after the calls
+    # call 1: the upload, the graph, a copy out; call 2: the graph
+    assert read(_rec("query", graphed, device)) == pytest.approx(2.0)
+    # another kind, no trace, no calls, a program without the ranges
+    assert read(_rec("build", graphed, device)) is None
+    assert read({"kind": "query", "calls": 2}) is None
+    assert read(_rec("query", [h for h in graphed
+                               if h[0] != "portbench.call"], device)) is None
+    assert read(_rec("query", [h for h in graphed
+                               if not h[0].startswith("hnsw.")],
+                     device)) is None
